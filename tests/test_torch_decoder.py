@@ -1,0 +1,139 @@
+"""Port decoder (openhush_tpu_torch.models.whisper.model.decode) against JAX
+`decode` on the same weights and the same cross-KV, fp and int8, in the
+three branches of the main path: the S=1 step and the short prefill (S=3)
+of `_decode_flat_ro`, and the long prefill (S=80, S·H > 128) on head views.
+
+Both sides get the SAME cross-KV arrays (JAX's, carried over), so the int8
+cases compare attention and not quantization. fp32 weights throughout.
+Tolerances: logits atol 2e-4 (O(1) logits; fp32 sums in another order, and
+with int8 cross-KV the probs' int8 rounding can move one level at a tie);
+written cache rows atol 1e-5."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openhush_tpu.models.whisper import model as jax_model
+from openhush_tpu.models.whisper.config import CONFIGS
+from openhush_tpu_torch.models.whisper import model, weights
+
+CFG = CONFIGS["test"]
+LOGIT_ATOL = 2e-4
+
+
+@pytest.fixture(autouse=True)
+def _erf_gelu(monkeypatch):
+    monkeypatch.setattr(jax_model, "_GELU_MODE", "erf")
+    monkeypatch.setattr(model, "_GELU_MODE", "erf")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jparams = jax_model.init_params(CFG, jax.random.PRNGKey(0),
+                                    dtype=jnp.float32)
+    params = weights.from_numpy_params(jax.tree.map(np.asarray, jparams),
+                                       torch.float32, "cpu")
+    feats = jnp.asarray(np.random.default_rng(0).standard_normal(
+        (2, CFG.n_audio_ctx, CFG.n_audio_state)).astype(np.float32))
+    xkv = {"fp": jax_model.compute_cross_kv(CFG, jparams, feats),
+           "int8": jax_model.compute_cross_kv_quant(CFG, jparams, feats)}
+    return jparams, params, feats, xkv
+
+
+def _port_cross(jkv):
+    t = lambda a: torch.from_numpy(np.array(a))
+    if isinstance(jkv, jax_model.QuantKVCache):
+        return model.QuantKVCache(t(jkv.k), t(jkv.k_scale), t(jkv.v),
+                                  t(jkv.v_scale))
+    return model.KVCache(t(jkv.k), t(jkv.v))
+
+
+_decode_jit = jax.jit(jax_model.decode, static_argnums=0)
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+@pytest.mark.parametrize("S,steps", [(3, 2), (80, 1)])
+def test_decode_matches_jax(setup, kind, S, steps):
+    """Prefill S tokens at pos 0, then `steps - 1` single-token steps."""
+    jparams, params, _, xkv = setup
+    rng = np.random.default_rng(S)
+    B, max_len = 2, 96
+    jcache = jax_model.init_kv_cache(CFG, B, jnp.float32, max_len)
+    cache = model.init_kv_cache(CFG, B, torch.float32, max_len)
+    cross = _port_cross(xkv[kind])
+    pos = 0
+    for step in range(steps):
+        n = S if step == 0 else 1
+        toks = rng.integers(0, 50257, (B, n)).astype(np.int32)
+        jl, jcache = _decode_jit(CFG, jparams, jnp.asarray(toks),
+                                 jnp.int32(pos), jcache, xkv[kind])
+        with torch.no_grad():
+            tl, cache = model.decode(CFG, params,
+                                     torch.from_numpy(toks).long(), pos,
+                                     cache, cross)
+        jl = np.asarray(jl)
+        assert tl.shape == jl.shape == (B, n, CFG.n_vocab_padded)
+        np.testing.assert_allclose(tl.numpy()[..., :CFG.n_vocab],
+                                   jl[..., :CFG.n_vocab], atol=LOGIT_ATOL)
+        np.testing.assert_array_equal(tl.numpy()[..., CFG.n_vocab:],
+                                      jl[..., CFG.n_vocab:])
+        pos += n
+        for a, b in ((cache.k, jcache.k), (cache.v, jcache.v)):
+            np.testing.assert_allclose(a.numpy()[:, :, :pos],
+                                       np.asarray(b)[:, :, :pos], atol=1e-5)
+            assert float(a[:, :, pos:].abs().sum()) == 0.0
+
+
+def test_single_step_after_prefill_int8(setup):
+    """The S=1 cross path (_attend_decode_flat) after a prefill, int8."""
+    jparams, params, _, xkv = setup
+    B, max_len = 2, 64
+    toks = np.array([[50258, 50259, 50359], [50258, 50260, 50359]], np.int32)
+    nxt = np.array([[50364], [440]], np.int32)
+    jcache = jax_model.init_kv_cache(CFG, B, jnp.float32, max_len)
+    _, jcache = _decode_jit(CFG, jparams, jnp.asarray(toks), jnp.int32(0),
+                            jcache, xkv["int8"])
+    jl, _ = _decode_jit(CFG, jparams, jnp.asarray(nxt), jnp.int32(3),
+                        jcache, xkv["int8"])
+    cache = model.init_kv_cache(CFG, B, torch.float32, max_len)
+    cross = _port_cross(xkv["int8"])
+    with torch.no_grad():
+        _, cache = model.decode(CFG, params, torch.from_numpy(toks).long(),
+                                0, cache, cross)
+        tl, _ = model.decode(CFG, params, torch.from_numpy(nxt).long(), 3,
+                             cache, cross)
+    np.testing.assert_allclose(tl.numpy()[..., :CFG.n_vocab],
+                               np.asarray(jl)[..., :CFG.n_vocab],
+                               atol=LOGIT_ATOL)
+
+
+def test_cross_kv_matches_jax(setup):
+    """compute_cross_kv and compute_cross_kv_quant on the same features:
+    fp atol 1e-5; int8 scales rtol 1e-6, values within one level."""
+    jparams, params, feats, xkv = setup
+    f = torch.from_numpy(np.array(feats))
+    with torch.no_grad():
+        fp = model.compute_cross_kv(CFG, params, f)
+        q = model.compute_cross_kv_quant(CFG, params, f)
+    np.testing.assert_allclose(fp.k.numpy(), np.asarray(xkv["fp"].k),
+                               atol=1e-5)
+    np.testing.assert_allclose(fp.v.numpy(), np.asarray(xkv["fp"].v),
+                               atol=1e-5)
+    jq = xkv["int8"]
+    for ours, ref in ((q.k_scale, jq.k_scale), (q.v_scale, jq.v_scale)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6)
+    for ours, ref in ((q.k, jq.k), (q.v, jq.v)):
+        d = np.abs(ours.numpy().astype(np.int32)
+                   - np.asarray(ref).astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+def test_unported_options_raise(setup):
+    _, params, _, xkv = setup
+    cache = model.init_kv_cache(CFG, 2, torch.float32, 8)
+    toks = torch.zeros(2, 1, dtype=torch.long)
+    with pytest.raises(NotImplementedError):
+        model.decode(CFG, params, toks, 0, cache, _port_cross(xkv["fp"]),
+                     cross_group=2)
