@@ -7,23 +7,35 @@ Phases, each printing its own lines and its seconds:
      the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a);
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
-     (large-v3, one 30 s window), with its time, the plain version's, the
+     (large-v3, one 30 s window; for the decode attention K4/K5, the
+     serving step at 8 slots), with its time, the plain version's, the
      least time the card could take (bound) and, where one PyTorch call
-     computes the same function, that call's time;
+     computes the same function, that call's time; K4 and K5 are also held
+     to each other bit for bit, and in the TPU kernel's own function;
   3. a small-input reference check: the "tiny" model in fp32 on the card
-     (kernels) against the same weights on the CPU (plain versions);
-  4. the main path: WhisperEngine("large-v3", bf16, random weights from seed
-     0) transcribes two requests (about 20 s and 45 s of speech-like audio),
-     with every kernel's launch count read over exactly that run;
+     (kernels) against the same weights on the CPU (plain versions); then
+     an EngineServer on the card (three windows over two slots, t=0)
+     against the one-shot greedy loop on the card: the same tokens;
+  4. the one-shot path: WhisperEngine("large-v3", bf16, random weights from
+     seed 0) transcribes two requests (about 20 s and 45 s of speech-like
+     audio), with every kernel's launch count read over exactly that run;
      then one window's greedy decode under torch.profiler (host wall per
      decoder call, device busy time and idle share, top kernels);
-  5. the CLI: `python -m openhush_tpu_torch.cli transcribe <wav> --model
-     large-v3 --random-init --format json` in a subprocess;
-then a `{"kernels": [...]}` line and, last, the `{"ok": true, "device": ...}`
-line. Any failure raises, so the script exits non-zero and prints no result.
-It never runs on the CPU: without CUDA it exits 1 at once.
+  4c. the serving path: make_server with 8 slots on the same weights and
+     longform.transcribe_files on 8 requests of 5-45 s, with every
+     kernel's launch count read over exactly that run, then a few steps at
+     8 busy slots under a device-only trace;
+  5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
+     <wav> --model large-v3 --random-init --format json`, then the same with
+     three WAVs (the serving path: a JSON list);
+then a `{"kernels": [...]}` line (launches from the serving path) and, last,
+the `{"ok": true, "device": ...}` line. Any failure raises, so the script
+exits non-zero and prints no result. It never runs on the CPU: without CUDA
+it exits 1 at once.
 """
 
+import functools
+import itertools
 import json
 import math
 import os
@@ -37,9 +49,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# Output tokens per window in the main-path run (the depth cut that keeps
+# Output tokens per window in the main-path runs (the depth cut that keeps
 # this script within its time limit; the engine's default is 224).
 MAX_NEW_TOKENS = 96
+SERVE_SLOTS = 8
+N_LAYER = 32                 # large-v3's decoder layers
+SERVE_SECS = (5.0, 10.0, 15.0, 20.0, 25.0, 30.0, 38.0, 45.0)
+# Spin-kernel cycles per second: the H100's top SM clock (1.98 GHz); a
+# slower clock only makes the spin longer.
+SPIN_CYCLES_PER_S = 2.0e9
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -51,18 +69,35 @@ def log(msg: str) -> None:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `iters` back-to-back calls, by CUDA
-    events after a warm-up."""
+    events after a warm-up. A spin kernel first holds the card for twice
+    the time the host takes to queue the calls, so the events time the
+    device's work and not the rate at which Python launches it (a kernel
+    wrapper costs tens of microseconds of host time, more than the decode
+    kernels take)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_s + 1e-3) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rotate(calls):
+    """One call after another from `calls`, round and round: each launch
+    reads another layer's buffers, as the decode step does."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
 
 
 def bound_ms(n_bytes: float, n_flops: float, kind: str):
@@ -167,6 +202,153 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
     return rows
 
 
+def phase_decode_attention(da, quantize):
+    """K4 and K5 at the serving step's shapes (large-v3, 8 slots, one query
+    per row): the self-attention over the bf16 cache (T = 128, per-row
+    positions, causal) on the direct path (K4), the cross-attention over
+    the int8 cross-KV (T = 1500) on the pipelined path (K5). Each mode also
+    runs on the other path: the two must agree bit for bit."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    B, H, D, T_self, T_cross = SERVE_SLOTS, 20, 64, 128, 1500
+    HD = H * D
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    paths = (da.attend_decode, da.attend_decode_pipelined)
+    rows = []
+
+    # Self-attention, bf16: query s=0 of row b sees pos_b + 1 keys.
+    q = rnd(B, 1, HD).to(torch.bfloat16)
+    k, v = (rnd(B, T_self, HD).to(torch.bfloat16) for _ in range(2))
+    lengths = (torch.randint(0, T_self, (B,), generator=g, device=dev)
+               + 1).to(torch.int32)
+    args = (q, k, v, lengths, H)
+    (o4, p4), (o5, p5) = (fn(*args, causal=True, return_probs=True)
+                          for fn in paths)
+    plain, p_plain = da.attend_decode_plain(*args, causal=True,
+                                            return_probs=True)
+    torch.cuda.synchronize()
+    check(torch.equal(o4, o5) and torch.equal(p4, p5),
+          "K4/K5 bf16 self-attention bit-identical")
+    err = (o4.float() - plain.float()).abs().max().item()
+    perr = (p4 - p_plain).abs().max().item()
+    tol = 1e-2   # bf16 outputs (an ulp is 7.8e-3 at 1); fp32 sums reordered
+    log(f"K4 attend_decode (bf16 self, T={T_self}, causal, per-row "
+        f"lengths): max_abs_err {err:.3e} (tolerance {tol}), bf16 probs "
+        f"max_abs_err {perr:.3e}; direct and pipelined paths bit-identical")
+    check(err <= tol, "K4 vs plain")
+    n_keys = int(lengths.sum())          # the rows this data needs read
+    b, by = bound_ms(2 * n_keys * HD * 2 + 2 * B * HD * 2 + 4 * B,
+                     4 * n_keys * HD, "fp32")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads = lambda x: x.view(B, -1, H, D).transpose(1, 2)
+    mask = (torch.arange(T_self, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib = sdpa(heads(q), heads(k), heads(v), attn_mask=mask)
+    lib_err = (lib.transpose(1, 2).reshape(B, 1, HD).float()
+               - plain.float()).abs().max().item()
+    log(f"  SDPA (boolean mask) vs plain: max_abs_err {lib_err:.3e}")
+    # Timed over one cache copy per decoder layer, each launch on the next:
+    # the step finds every layer's cache cold in the 50 MB L2.
+    self_layers = [(k.clone(), v.clone()) for _ in range(N_LAYER)]
+    on_layers = lambda fn, **kw: rotate([
+        functools.partial(fn, q, kl, vl, lengths, H, causal=True, **kw)
+        for kl, vl in self_layers])
+    rows.append(dict(
+        name="decode_attention_direct",
+        source="openhush_tpu_torch/csrc/decode_attention.cu",
+        replaces="openhush_tpu/ops/decode_attention.py:133",
+        counter=da.attend_decode, max_abs_err=err,
+        ms=time_ms(on_layers(da.attend_decode), iters=2 * N_LAYER),
+        plain_ms=time_ms(on_layers(da.attend_decode_plain)),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(rotate([
+            functools.partial(sdpa, heads(q), heads(kl), heads(vl),
+                              attn_mask=mask) for kl, vl in self_layers]),
+            iters=2 * N_LAYER)))
+    log(f"  K5 path on these shapes: "
+        f"{time_ms(on_layers(da.attend_decode_pipelined), iters=2 * N_LAYER):.4f} ms")
+    del self_layers
+
+    # Cross-attention, int8 with per-(position, head) scales.
+    q = rnd(B, 1, HD).to(torch.bfloat16)
+    xk_f, xv_f = (rnd(B, T_cross, HD).to(torch.bfloat16) for _ in range(2))
+    (k8, ks), (v8, vs) = (quantize.quantize_heads_plain(x, H)
+                          for x in (xk_f, xv_f))
+    lengths = torch.tensor([1500, 1499, 1400, 1024, 777, 300, 64, 1],
+                           dtype=torch.int32, device=dev)
+    for lens in (lengths, None):
+        args = (q, k8, v8, lens, H)
+        (o4, p4), (o5, p5) = (fn(*args, ks=ks, vs=vs, return_probs=True)
+                              for fn in paths)
+        plain, p_plain = da.attend_decode_plain(*args, ks=ks, vs=vs,
+                                                return_probs=True)
+        torch.cuda.synchronize()
+        check(torch.equal(o4, o5) and torch.equal(p4, p5),
+              "K4/K5 int8 cross-attention bit-identical")
+        err = (o5.float() - plain.float()).abs().max().item()
+        dp = (p5 - p_plain).abs()
+        n_vis = H * (int(lens.sum()) if lens is not None else B * T_cross)
+        share = dp.ne(0).sum().item() / n_vis
+        log(f"K5 attend_decode_pipelined (int8 cross, T={T_cross}, lengths "
+            f"{'per row' if lens is not None else 'all'}): max_abs_err "
+            f"{err:.3e} (tolerance 1e-2: bf16 outputs, and a prob level "
+            f"moved at a .5 tie moves an output by at most max_t(p*vs)); "
+            f"int8 prob levels max diff {dp.max().item():.0f} on "
+            f"{share:.2e} of visible keys (tolerance 1 level on <= 1e-3); "
+            f"direct and pipelined paths bit-identical")
+        check(err <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+              "K5 vs plain")
+    b, by = bound_ms(2 * B * T_cross * HD + 2 * B * T_cross * H * 4
+                     + 2 * B * HD * 2, 4 * B * T_cross * HD, "fp32")
+    cross_layers = [tuple(x.clone() for x in (k8, v8, ks, vs))
+                    for _ in range(N_LAYER)]
+    on_layers = lambda fn, batch=slice(None): rotate([
+        functools.partial(fn, q[batch], kl[batch], vl[batch], None, H,
+                          ks=ksl[batch], vs=vsl[batch])
+        for kl, vl, ksl, vsl in cross_layers])
+    rows.append(dict(
+        name="decode_attention_pipelined",
+        source="openhush_tpu_torch/csrc/decode_attention.cu",
+        replaces="openhush_tpu/ops/decode_attention_dma.py:101",
+        counter=da.attend_decode_pipelined, max_abs_err=err,
+        ms=time_ms(on_layers(da.attend_decode_pipelined), iters=2 * N_LAYER),
+        plain_ms=time_ms(on_layers(da.attend_decode_plain)),
+        bound_ms=b, bound_by=by, library_ms=None))
+    log(f"  K4 path on these shapes: "
+        f"{time_ms(on_layers(da.attend_decode), iters=2 * N_LAYER):.4f} ms")
+
+    # The one-shot engine's step is batch 1 (20 CTAs a launch): its times.
+    lens1 = torch.tensor([100], dtype=torch.int32, device=dev)
+    self_b1 = [tuple(x[:1, :T_self].clone() for x in (xk_f, xv_f))
+               for _ in range(N_LAYER)]
+    for fn in paths:
+        self_ms = time_ms(rotate([
+            functools.partial(fn, q[:1], kl, vl, lens1, H, causal=True)
+            for kl, vl in self_b1]), iters=2 * N_LAYER)
+        cross_ms = time_ms(on_layers(fn, slice(0, 1)), iters=2 * N_LAYER)
+        log(f"  batch 1 ({fn.__name__}): bf16 self T={T_self} (100 keys) "
+            f"{self_ms:.4f} ms, int8 cross T={T_cross} {cross_ms:.4f} ms")
+    del cross_layers, self_b1
+
+    # The TPU kernels' own function: q pre-scaled, no scales, int8 values
+    # taken as numbers; both paths, int8 and bf16 K/V, t_actual < T.
+    q2 = (q[:, 0].float() * D ** -0.5).to(torch.bfloat16)
+    for kk, vv, what in ((k8, v8, "int8"), (xk_f, xv_f, "bf16")):
+        ref = da.decode_cross_attend_plain(q2, kk, vv, H, 1400).float()
+        for pipelined in (False, True):
+            out = da.decode_cross_attend(q2, kk, vv, H, 1400,
+                                         pipelined=pipelined).float()
+            e = (out - ref).abs().max().item()
+            if what == "int8":
+                e /= ref.abs().max().item()
+            log(f"  decode_cross_attend ({what}, t_actual 1400, "
+                f"{'pipelined' if pipelined else 'direct'}): "
+                f"{'relative ' if what == 'int8' else ''}max_err {e:.3e} "
+                f"(tolerance 2e-2)")
+            check(e <= 2e-2, f"decode_cross_attend {what} vs plain")
+    return rows
+
+
 def phase_reference(WhisperEngine, decoding, whisper, weights, get_config,
                     frontend, mel, quantize):
     """tiny, fp32: the card (kernels) against the CPU (plain versions) on
@@ -215,14 +397,74 @@ def phase_reference(WhisperEngine, decoding, whisper, weights, get_config,
         f"elements (tolerance 1 on <= 1e-3)")
     check(bool((s == sp).all()) and dq.max().item() <= 1
           and dq.ne(0).float().mean().item() <= 1e-3, "fp32 quantize")
+    return cfg, gpu
 
 
-def phase_main_path(WhisperEngine, counters, n_layer):
+def phase_server_tiny(cfg, params, WhisperEngine, EngineServer, decoding,
+                      whisper, frontend, mel, max_new=32):
+    """An EngineServer on the card (tiny, fp32; three windows over two
+    slots; t=0, guards off) against the one-shot greedy loop on the card on
+    the same windows and the same int8 cross-KV: the same tokens."""
+    eng = WhisperEngine("tiny", params=params, device="cuda")
+    tok = eng.tokenizer
+    audios = [speechlike(secs, SEED + 6 + i)
+              for i, secs in enumerate((8.0, 12.0, 20.0))]
+    plen = len(tok.sot_sequence("en", "transcribe"))
+    srv = EngineServer(cfg, params, n_slots=2, inner_steps=8,
+                       dtype=torch.float32, tokenizer=tok,
+                       max_decode_len=plen + max_new + 1,
+                       temperatures=(0.0,), logprob_threshold=-1e9,
+                       no_speech_threshold=2.0, max_admissions_per_turn=2)
+    sids = [srv.open_session() for _ in audios]
+    for sid, a in zip(sids, audios):
+        srv.submit_window(sid, a, language="en")
+    got = {}
+    for _ in range(200):
+        srv.run_once()
+        for sid in sids:
+            r = srv.poll(sid)
+            if r is not None:
+                got[sid] = r.tokens
+        if len(got) == len(sids):
+            break
+    check(len(got) == len(sids), "server finished every window")
+    opts = decoding.DecodingOptions(language="en", max_new_tokens=max_new)
+    eot = tok.special.eot
+    with torch.inference_mode():
+        for sid, a in zip(sids, audios):
+            window = torch.from_numpy(mel.pad_or_trim(a)).cuda()[None]
+            feats = whisper.encode(cfg, params, frontend.log_mel(
+                window, cfg.n_mels))
+            xkv = whisper.compute_cross_kv_quant(cfg, params, feats)
+            res = decoding.decode_greedy(cfg, params, xkv, tok, opts)
+            ref = []
+            for t in res.tokens[0, res.prompt_len:]:
+                if t == eot:
+                    break
+                ref.append(int(t))
+            log(f"  tiny fp32 server vs one-shot: {len(got[sid])} tokens, "
+                f"{'equal' if got[sid] == ref else 'DIFFERENT'}")
+            check(got[sid] == ref, "server tokens == one-shot tokens")
+
+
+def check_decode_launches(launches, flat_calls, n_layer):
+    """Every flat decoder call launches K4 (self) and K5 (cross) once per
+    decoder layer."""
+    k4 = launches["attend_decode"]
+    k5 = launches["attend_decode_pipelined"]
+    log(f"  flat decoder calls {flat_calls}: K4 launches {k4}, K5 launches "
+        f"{k5} (expected {n_layer} x {flat_calls} = {n_layer * flat_calls})")
+    check(flat_calls > 0 and k4 == k5 == n_layer * flat_calls,
+          "K4 and K5 ran once per decoder layer and flat decoder call")
+
+
+def phase_main_path(WhisperEngine, whisper, counters, n_layer):
     eng = WhisperEngine("large-v3", dtype="bfloat16", allow_random_init=True)
     requests = [speechlike(20.0, SEED + 2), speechlike(45.0, SEED + 3)]
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
+    whisper._decode_flat_ro.calls = 0
     t0 = time.monotonic()
     results = [eng.transcribe(a, max_new_tokens=MAX_NEW_TOKENS)
                for a in requests]
@@ -250,7 +492,96 @@ def phase_main_path(WhisperEngine, counters, n_layer):
           "K2 ran once per encoder layer and window")
     check(launches["quantize_heads"] == 2 * n_layer * windows,
           "K3 ran for K and V of every decoder layer and window")
+    check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer)
     return launches, eng
+
+
+def phase_serving(eng, longform, whisper, counters, n_layer):
+    """The serving path: make_server (8 slots) on the one-shot path's
+    weights, transcribe_files on 8 requests of 5-45 s, with every kernel's
+    launch count read over exactly that run. Then 8 fresh windows fill the
+    slots and a few steps run at 8 busy slots: timed on the host clock,
+    then under a device-only trace (busy time, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, tok = eng.cfg, eng.params, eng.tokenizer
+    srv = longform.make_server(cfg, params, tok, n_files=len(SERVE_SECS),
+                               n_slots=SERVE_SLOTS,
+                               max_new_tokens=MAX_NEW_TOKENS,
+                               dtype=torch.bfloat16, temperatures=(0.0,))
+    check(srv.n_slots == SERVE_SLOTS, "the budgeter kept 8 slots")
+    requests = [speechlike(secs, SEED + 20 + i)
+                for i, secs in enumerate(SERVE_SECS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    whisper._decode_flat_ro.calls = 0
+    t0 = time.monotonic()
+    results = longform.transcribe_files(srv, requests, language="auto")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    flat_calls = whisper._decode_flat_ro.calls
+    dispatches = srv.step_dispatches
+    windows = sum(r.windows for r in results)
+    audio_s = sum(len(a) for a in requests) / 16000
+    for a, r in zip(requests, results):
+        dur = len(a) / 16000
+        check(isinstance(r.text, str) and r.windows >= 1, "serving result")
+        for seg in r.segments:
+            check(0.0 <= seg.start <= seg.end <= dur + 30.0, f"segment {seg}")
+            check(math.isfinite(seg.avg_logprob), "avg_logprob finite")
+    log(f"  serving: {len(requests)} requests, {windows} windows, "
+        f"{audio_s:.0f} s of audio in {wall:.2f} s wall = "
+        f"{audio_s / wall:.2f}x realtime; {dispatches} step dispatches "
+        f"({srv.inner_steps} steps each, x{srv.deep_factor} when deep); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    check(launches["log_mel_energies"] >= 1
+          and launches["flash_attention"] >= n_layer
+          and launches["quantize_heads"] >= 2 * n_layer,
+          "K1-K3 ran in the server's window preparation")
+    check_decode_launches(launches, flat_calls, n_layer)
+
+    # Steady state: 8 busy slots (prepared and admitted, no step yet).
+    sids = [srv.open_session() for _ in range(SERVE_SLOTS)]
+    for i, sid in enumerate(sids):
+        srv.submit_window(sid, speechlike(30.0, SEED + 40 + i),
+                          language="en")
+    srv._prepare_many([srv._pending.get_nowait() for _ in sids])
+    srv._admit_pending()
+    check(len(srv._slots) == SERVE_SLOTS, "8 slots admitted")
+    n = 2
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        srv._step_state()
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / (n * srv.inner_steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        srv._step_state()
+        torch.cuda.synchronize()
+        traced = time.monotonic() - t0
+    busy, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    log(f"  8 busy slots: {per_step * 1e3:.2f} ms host wall per decode step "
+        f"untraced ({n} dispatches of {srv.inner_steps} steps)")
+    if busy == 0:
+        log("  serving trace: the profiler saw no device events; device "
+            "time not measured")
+    else:
+        log(f"  traced dispatch of {srv.inner_steps} steps: "
+            f"{traced * 1e3:.1f} ms wall, device busy {busy / 1e3:.2f} ms = "
+            f"{busy / 1e3 / srv.inner_steps:.2f} ms/step, device idle share "
+            f"{1 - busy / 1e6 / traced:.3f}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+    return launches
 
 
 def phase_trace(eng, decoding, whisper, frontend, steps=32):
@@ -327,6 +658,27 @@ def phase_cli():
           "CLI JSON")
     log(f"  CLI: rc 0, language {data['language']}, real_time_factor "
         f"{data['real_time_factor']:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        from openhush_tpu_torch.audio.wav import save_wav
+        wavs = []
+        for i, secs in enumerate((6.0, 9.0, 12.0)):
+            wavs.append(os.path.join(tmp, f"request{i}.wav"))
+            save_wav(wavs[-1], speechlike(secs, SEED + 30 + i))
+        t0 = time.monotonic()
+        r = subprocess.run(
+            [sys.executable, "-m", "openhush_tpu_torch.cli", "transcribe",
+             *wavs, "--model", "large-v3", "--random-init", "--format",
+             "json"], capture_output=True, text=True, env=env, cwd=ROOT,
+            timeout=600)
+        wall = time.monotonic() - t0
+    check(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-2000:]}")
+    data = json.loads(r.stdout)
+    check(isinstance(data, list) and [d["file"] for d in data] == wavs
+          and [d["audio_duration_secs"] for d in data] == [6.0, 9.0, 12.0],
+          "multi-file CLI JSON list")
+    log(f"  CLI, 3 files through the server: rc 0 in {wall:.1f} s, "
+        f"languages {[d['language'] for d in data]}")
+    log(json.dumps(data))
 
 
 def main() -> int:
@@ -338,9 +690,12 @@ def main() -> int:
     from openhush_tpu_torch.models.whisper import decoding, weights
     from openhush_tpu_torch.models.whisper import model as whisper
     from openhush_tpu_torch.models.whisper.config import get_config
-    from openhush_tpu_torch.ops import (_build, flash_attention, frontend, mel,
+    from openhush_tpu_torch.ops import (_build, decode_attention,
+                                        flash_attention, frontend, mel,
                                         quantize)
+    from openhush_tpu_torch.runtime import longform
     from openhush_tpu_torch.runtime.engine import WhisperEngine
+    from openhush_tpu_torch.runtime.server import EngineServer
 
     t = time.monotonic()
     smi = subprocess.run(
@@ -359,23 +714,37 @@ def main() -> int:
 
     t = time.monotonic()
     rows = phase_kernels(frontend, flash_attention, quantize, mel)
+    rows += phase_decode_attention(decode_attention, quantize)
+    for r in rows[3:]:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}), library {r['library_ms']}")
     log(f"phase 2 kernels vs plain: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
-    phase_reference(WhisperEngine, decoding, whisper, weights, get_config,
-                    frontend, mel, quantize)
-    log(f"phase 3 tiny fp32 card vs CPU: {time.monotonic() - t:.1f} s")
+    cfg_tiny, tiny_gpu = phase_reference(WhisperEngine, decoding, whisper,
+                                         weights, get_config, frontend, mel,
+                                         quantize)
+    phase_server_tiny(cfg_tiny, tiny_gpu, WhisperEngine, EngineServer,
+                      decoding, whisper, frontend, mel)
+    del tiny_gpu
+    log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot: "
+        f"{time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     counters = [r["counter"] for r in rows]
-    launches, eng = phase_main_path(WhisperEngine, counters,
-                                    get_config("large-v3").n_audio_layer)
-    log(f"phase 4 main path: {time.monotonic() - t:.1f} s")
+    n_layer = get_config("large-v3").n_text_layer
+    _, eng = phase_main_path(WhisperEngine, whisper, counters, n_layer)
+    log(f"phase 4 one-shot path: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_trace(eng, decoding, whisper, frontend)
-    del eng
     log(f"phase 4b decode trace: {time.monotonic() - t:.1f} s")
+
+    t = time.monotonic()
+    launches = phase_serving(eng, longform, whisper, counters, n_layer)
+    del eng
+    log(f"phase 4c serving path: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_cli()

@@ -1,12 +1,16 @@
-"""openhush-torch CLI: the `transcribe` subcommand of openhush_tpu/cli.py for
-one file, on the GPU.
+"""openhush-torch CLI: the `transcribe` subcommand of openhush_tpu/cli.py, on
+the GPU.
 
-Usage: python -m openhush_tpu_torch.cli transcribe FILE [--model large-v3]
-[--format text|json|srt|vtt|timestamped] [--random-init] [--device cpu]
+Usage: python -m openhush_tpu_torch.cli transcribe FILE [FILE ...]
+[--model large-v3] [--format text|json|srt|vtt|timestamped] [--random-init]
+[--device cpu]
 
-The transcript (text block, JSON object, or subtitle body) goes to stdout,
-with the reference's JSON keys (src/main.rs:1028-1036); progress lines go
-to stderr.
+One file runs the one-shot engine's seek loop; several files run their seek
+loops together through the continuous-batching server
+(runtime/longform.py), as the reference CLI does. The transcript (text
+block, JSON object, or subtitle body; per file, headed, for several files,
+and a JSON list with a "file" key) goes to stdout, with the reference's JSON
+keys (src/main.rs:1028-1036); progress lines go to stderr.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import time
 
 
 def _add_transcribe(sub):
-    p = sub.add_parser("transcribe", help="Transcribe one audio file")
+    p = sub.add_parser("transcribe",
+                       help="Transcribe audio file(s); several files batch "
+                            "through the continuous-batching server")
     p.add_argument("file", nargs="+")
     p.add_argument("--format", "-f", default="text",
                    help="text|json|srt|vtt|timestamped")
@@ -47,24 +53,21 @@ def cmd_transcribe(args) -> int:
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.text import formats
 
-    if len(args.file) > 1:
-        print("Several files at once are batched by the serving path, which "
-              "is not ported yet; pass one file", file=sys.stderr)
-        return 2
-    path = args.file[0]
-    if not os.path.exists(path):
-        print(f"File not found: {path}", file=sys.stderr)
-        return 1
+    files = args.file
+    for f in files:
+        if not os.path.exists(f):
+            print(f"File not found: {f}", file=sys.stderr)
+            return 1
     fmt = args.format.lower()
 
     t_load = time.monotonic()
     try:
-        audio = load_wav(path)
+        audios = [load_wav(f) for f in files]
     except (ValueError, OSError) as e:
         print(f"Cannot load audio: {e}", file=sys.stderr)
         return 1
-    duration = len(audio) / 16000.0
-    _progress(f"Loaded: {duration:.2f}s audio (1 file(s)) in "
+    total_secs = sum(len(a) for a in audios) / 16000.0
+    _progress(f"Loaded: {total_secs:.2f}s audio ({len(files)} file(s)) in "
               f"{(time.monotonic() - t_load) * 1000:.0f}ms")
 
     t_model = time.monotonic()
@@ -82,32 +85,64 @@ def cmd_transcribe(args) -> int:
               f"{(time.monotonic() - t_model) * 1000:.0f}ms")
 
     t0 = time.monotonic()
-    result = engine.transcribe(audio, language=args.language,
-                               translate=args.translate)
+    if len(files) > 1:
+        results = _transcribe_batch(engine, audios, args)
+    else:
+        results = [engine.transcribe(audios[0], language=args.language,
+                                     translate=args.translate)]
     transcribe_s = time.monotonic() - t0
 
+    payloads = []
+    for path, audio, result in zip(files, audios, results):
+        duration = len(audio) / 16000.0
+        share = transcribe_s * duration / max(total_secs, 1e-9)
+        if fmt == "json":
+            # Key set parity: src/main.rs:1028-1036.
+            payload = {
+                "text": result.text,
+                "language": result.language,
+                "duration_ms": result.duration_ms,
+                "audio_duration_secs": duration,
+                "transcription_time_ms": int(share * 1000),
+                "real_time_factor": share / max(duration, 1e-9),
+                "model": args.model,
+            }
+            if len(files) > 1:
+                payload = {"file": path, **payload}
+            payloads.append(payload)
+        elif fmt in ("srt", "vtt", "timestamped"):
+            if len(files) > 1:
+                print(f"# {path}")
+            segs = [formats.TranscribedSegment(s.start, s.end, s.text.strip())
+                    for s in result.segments]
+            print(formats.render(segs, fmt), end="")
+        else:
+            header = f" {path} " if len(files) > 1 else " Transcription "
+            print(f"\n---{header}---")
+            print(result.text)
+            print("---")
     if fmt == "json":
-        # Key set parity: src/main.rs:1028-1036.
-        print(json.dumps({
-            "text": result.text,
-            "language": result.language,
-            "duration_ms": result.duration_ms,
-            "audio_duration_secs": duration,
-            "transcription_time_ms": int(transcribe_s * 1000),
-            "real_time_factor": transcribe_s / max(duration, 1e-9),
-            "model": args.model,
-        }, indent=2))
-    elif fmt in ("srt", "vtt", "timestamped"):
-        segs = [formats.TranscribedSegment(s.start, s.end, s.text.strip())
-                for s in result.segments]
-        print(formats.render(segs, fmt), end="")
-    else:
-        print("\n--- Transcription ---")
-        print(result.text)
-        print("---")
+        print(json.dumps(payloads[0] if len(payloads) == 1 else payloads,
+                         indent=2))
+    elif fmt not in ("srt", "vtt", "timestamped"):
         _progress(f"Time: {transcribe_s * 1000:.0f}ms "
-                  f"(RTF: {transcribe_s / max(duration, 1e-9):.3f}x)")
+                  f"(RTF: {transcribe_s / max(total_secs, 1e-9):.3f}x)")
     return 0
+
+
+def _transcribe_batch(engine, audios, args):
+    """Several files through the continuous-batching server: every file
+    runs its own seek loop, one window in flight per file, and the server
+    batches the in-flight windows of different files into one decode
+    step."""
+    from openhush_tpu_torch.runtime import longform
+
+    server = longform.make_server(engine.cfg, engine.params,
+                                  engine.tokenizer, n_files=len(audios),
+                                  dtype=engine.dtype)
+    return longform.transcribe_files(
+        server, audios, language=args.language or engine.language or "auto",
+        task="translate" if args.translate else "transcribe")
 
 
 def main(argv=None) -> int:

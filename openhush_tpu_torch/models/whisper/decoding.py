@@ -78,7 +78,8 @@ def _timestamp_filter(logits, sp_consts, state, step: int,
 
     state: (prev_was_ts [B], prevprev_was_ts [B], ts_floor [B]) where ts_floor
     is the minimum allowed timestamp token id (monotonicity); step is the
-    count of tokens sampled so far."""
+    count of tokens sampled so far: an int, or a [B] tensor when every row
+    is at its own step (continuous batching)."""
     ts_begin, eot = sp_consts
     B, V = logits.shape
     vocab_ids = torch.arange(V, device=logits.device)[None, :]     # [1, V]
@@ -99,8 +100,11 @@ def _timestamp_filter(logits, sp_consts, state, step: int,
 
     # First sampled token must be a timestamp, capped at max_initial
     # (openai blocks everything below timestamp_begin here, EOT included).
-    if step == 0:
-        init_block = (~is_ts) | (vocab_ids > ts_begin + max_initial_index)
+    init_block = (~is_ts) | (vocab_ids > ts_begin + max_initial_index)
+    if torch.is_tensor(step):
+        logits = torch.where((step == 0)[:, None] & init_block, NEG_INF,
+                             logits)
+    elif step == 0:
         logits = torch.where(init_block, NEG_INF, logits)
 
     # Probability rule: if p(any timestamp) > max p(text) → force timestamp.

@@ -9,15 +9,15 @@ and logits run in fp32 whatever the parameter dtype (bf16 in production).
 Differences from the reference, each with its reason:
 - Layers run in a Python loop over per-layer views instead of `lax.scan`.
 - The decode step writes the self-attention cache in place (the reference
-  returns an updated copy); `decode` still returns the cache.
-- The reference's block-diagonal selector, which spreads each head's query
-  into its own 128-lane column of one matmul, is a TPU layout trick. Here
-  every score and value product is a per-head contraction, which sums the
-  same terms.
-- On CUDA there is no integer matmul, so the int8 cross-attention products
-  run in fp32 on integer values, where they are exact (see `_exact_pv`).
+  returns an updated copy); `decode` still returns the cache. In the flat
+  step each layer writes its new keys first and then attends over the
+  cache, where the reference attends over the read-only cache plus the new
+  keys beside it: the same keys, the same math.
+- The decode step's attention (the reference's `_attend_decode_flat*`
+  einsums, whose block-diagonal selector is a TPU layout trick) runs on the
+  hand-written decode-attention kernel, ops/decode_attention.py.
 - Not in this slice: the W8A8 encoder and int8 decoder weights, the int8
-  self-cache, beam groups (`cross_group > 1`) and per-row positions.
+  self-cache, and beam groups (`cross_group > 1`).
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
+from openhush_tpu_torch.ops.decode_attention import (attend_decode,
+                                                     attend_decode_pipelined)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads
 
@@ -194,106 +196,6 @@ def compute_cross_kv_quant(cfg: WhisperConfig, params: Params,
                         torch.stack(vs))
 
 
-# ---------------------------------------------------------------------------
-# Decode-step attention over the flat caches
-# ---------------------------------------------------------------------------
-
-# Keys per fp32 partial sum of an int8 prob x int8 value product: each term
-# is at most 127*127, and 1024 of them stay below 2**24, so every partial
-# sum is an exact integer; partials are added in int32.
-_PV_CHUNK = 1024
-
-
-def _exact_pv(p8: torch.Tensor, v4: torch.Tensor) -> torch.Tensor:
-    """sum_t p8[b,t,s,h] * v4[b,t,h,d] → int32 [B, S, H, D], exact; p8 holds
-    integer values in fp32, v4 is int8."""
-    out = None
-    for t0 in range(0, v4.shape[1], _PV_CHUNK):
-        part = torch.einsum("btsh,bthd->bshd", p8[:, t0:t0 + _PV_CHUNK],
-                            v4[:, t0:t0 + _PV_CHUNK].float()).to(torch.int32)
-        out = part if out is None else out + part
-    return out
-
-
-def _quantize_query(q3: torch.Tensor, n_head: int):
-    """Per-(row, query, head) int8 query quantization of the decode paths:
-    max(·, 1e-10) / 127 with a divide (not _quantize_heads' recipe)."""
-    B, S, HD = q3.shape
-    qh = q3.float().view(B, S, n_head, HD // n_head)
-    qscale = torch.clamp(qh.abs().amax(dim=-1), min=1e-10) / 127.0
-    q8 = torch.clamp(torch.round(qh / qscale[..., None]), -127, 127)
-    return q8, qscale
-
-
-def _attend_decode_flat_multi(q3, k_flat, v_flat, n_head, *, ks=None,
-                              vs=None):
-    """Cross-attention of S queries over a flat cache, every key visible.
-
-    q3: [B, S, H*D]; k_flat/v_flat: [B, T, H*D] (float or int8);
-    ks/vs: [B, T, H] scales when the cache is int8. With int8 KV the query
-    is quantized per head, the score and value products are integer-exact,
-    and the scales fold into scores and probs (probs quantized per (row,
-    query, head)). Per query this is the reference's S=1 step
-    (_attend_decode_flat) too, so the port has one function for both."""
-    B, S, HD = q3.shape
-    D = HD // n_head
-    T = k_flat.shape[1]
-    k4 = k_flat.view(B, T, n_head, D)
-    v4 = v_flat.view(B, T, n_head, D)
-    quant = k_flat.dtype == torch.int8
-
-    if quant:
-        q8, qscale = _quantize_query(q3, n_head)
-        scores = torch.einsum("bthd,bshd->btsh", k4.float(), q8)
-        scores = (scores * ks[:, :, None, :]
-                  * qscale[:, None, :, :] * (D ** -0.5))
-    else:
-        scores = torch.einsum("bthd,bshd->btsh", k4.float(),
-                              q3.float().view(B, S, n_head, D)) * (D ** -0.5)
-
-    probs = torch.softmax(scores, dim=1)                 # over T
-    if quant:
-        pv = probs * vs[:, :, None, :]                   # [B, T, S, H]
-        pscale = torch.clamp(pv.amax(dim=1), min=1e-20) / 127.0   # [B, S, H]
-        p8 = torch.clamp(torch.round(pv / pscale[:, None]), -127, 127)
-        out = _exact_pv(p8, v4).float() * pscale[..., None]
-    else:
-        out = torch.einsum("btsh,bthd->bshd",
-                           probs.to(v_flat.dtype).float(), v4.float())
-    return out.reshape(B, S, HD).to(q3.dtype)
-
-
-def _attend_decode_flat_ro(q3, k_cache, v_cache, cache_mask, k_new, v_new,
-                           n_head):
-    """Self-attention of S new queries over a read-only cache plus the S new
-    keys riding beside it (float caches).
-
-    q3 [B,S,HD]; k_cache/v_cache [B,T,HD] holding positions < pos;
-    cache_mask [B|1,T] (key j visible iff j < pos); k_new/v_new [B,S,HD]
-    already in the cache dtype: block key jb is visible to query i iff
-    jb <= i. One softmax runs over the T + S keys."""
-    B, S, HD = q3.shape
-    D = HD // n_head
-    T = k_cache.shape[1]
-    qf = q3.float().view(B, S, n_head, D)
-    sc_c = torch.einsum("bthd,bshd->btsh", k_cache.view(B, T, n_head, D).float(),
-                        qf) * (D ** -0.5)
-    sc_n = torch.einsum("bjhd,bshd->bjsh", k_new.view(B, S, n_head, D).float(),
-                        qf) * (D ** -0.5)
-    if cache_mask is not None:
-        sc_c = torch.where(cache_mask[:, :, None, None], sc_c, NEG)
-    idx = torch.arange(S, device=q3.device)
-    blk = idx[:, None] <= idx[None, :]                   # [jb, i]
-    sc_n = torch.where(blk[None, :, :, None], sc_n, NEG)
-    probs = torch.softmax(torch.cat([sc_c, sc_n], dim=1), dim=1)
-    p_c, p_n = probs[:, :T], probs[:, T:]
-    out = (torch.einsum("btsh,bthd->bshd", p_c.to(v_cache.dtype).float(),
-                        v_cache.view(B, T, n_head, D).float())
-           + torch.einsum("bjsh,bjhd->bshd", p_n.to(v_new.dtype).float(),
-                          v_new.view(B, S, n_head, D).float()))
-    return out.reshape(B, S, HD).to(q3.dtype)
-
-
 def _attend_views(q4, k4, v4, mask, *, ks=None, vs=None):
     """Multi-query attention on [B, T, H, D] views of flat KV (the long
     prefill path). q4 [B,S,H,D]; k4/v4 [B,T,H,D] (int8 or float);
@@ -333,47 +235,86 @@ def _logits(cfg: WhisperConfig, dec: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _row_writer(pos: torch.Tensor, S: int, max_len: int):
+    """write(buf [B, T, ...], new [B, S, ...]): rows pos_b .. pos_b+S-1 of
+    each batch row b take `new`, rows past T are dropped (the reference's
+    scatter mode="drop"). A dropped row is sent to row pos_b - 1 with that
+    row's own value, so no index is out of range (a device assert on CUDA)
+    and no two writes of one call meet on a row with different values."""
+    B = pos.shape[0]
+    t_idx = pos[:, None] + torch.arange(S, device=pos.device)[None, :]
+    keep = t_idx < max_len
+    rows = torch.where(keep, t_idx, (pos[:, None] - 1).clamp(min=0))
+    b_idx = torch.arange(B, device=pos.device)[:, None]
+
+    def write(buf, new):
+        keep_b = keep.view(B, S, *([1] * (new.dim() - 2)))
+        buf[b_idx, rows] = torch.where(keep_b, new, buf[b_idx, rows])
+    return write
+
+
 def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
-                    pos: int, cache: KVCache, cross_kv
+                    pos, cache: KVCache, cross_kv
                     ) -> tuple[torch.Tensor, KVCache]:
-    """decode() body for S·H ≤ 128: each layer attends over the cache as
-    read-only and the S new keys beside it, then writes its S new keys and
-    values into the cache in place (no later read in this step needs the
-    old contents)."""
+    """decode() body for S·H ≤ 128, on the decode-attention kernel.
+
+    Each layer writes its S new keys and values into the cache in place
+    first, then attends with query i seeing the keys before pos_row + i + 1
+    (the direct load path, K4); the reference reads the cache as read-only
+    (keys before pos_row) and the new keys beside it, causal among
+    themselves, which is the same set of keys and the same math. The
+    cross-attention sees all of cross_kv (the pipelined load path, K5).
+    Per-row `pos` ([B] tensor) writes rows past max_len nowhere."""
+    _decode_flat_ro.calls += 1
     dec = params["decoder"]
     B, S, _ = x.shape
     n_head = cfg.n_text_head
     max_len = cache.k.shape[2]
-    cache_mask = torch.arange(max_len, device=x.device)[None, :] < pos
+    if torch.is_tensor(pos):
+        lengths = (pos + 1).to(torch.int32)
+        write = _row_writer(pos, S, max_len)
+    else:
+        lengths = pos + 1
+        n_keep = max(0, min(S, max_len - pos))
+
+        def write(buf, new):
+            buf[:, pos:pos + n_keep] = new[:, :n_keep]
 
     for l, lp in enumerate(_layers(dec["layers"])):
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
         q = h @ lp["q_w"] + lp["q_b"]                    # [B, S, HD]
-        k_new = (h @ lp["k_w"]).to(cache.k.dtype)
-        v_new = (h @ lp["v_w"] + lp["v_b"]).to(cache.v.dtype)
-        attn = _attend_decode_flat_ro(q, cache.k[l], cache.v[l], cache_mask,
-                                      k_new, v_new, n_head)
-        cache.k[l, :, pos:pos + S] = k_new
-        cache.v[l, :, pos:pos + S] = v_new
+        write(cache.k[l], (h @ lp["k_w"]).to(cache.k.dtype))
+        write(cache.v[l], (h @ lp["v_w"] + lp["v_b"]).to(cache.v.dtype))
+        attn = attend_decode(q, cache.k[l], cache.v[l], lengths, n_head,
+                             causal=True)
         x = x + attn @ lp["o_w"] + lp["o_b"]
         h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
         xq = h @ lp["xq_w"] + lp["xq_b"]
         xk, xv, xks, xvs = _cross(cross_kv, l)
-        attn = _attend_decode_flat_multi(xq, xk, xv, n_head, ks=xks, vs=xvs)
+        attn = attend_decode_pipelined(xq, xk, xv, None, n_head, ks=xks,
+                                       vs=xvs)
         x = x + attn @ lp["xo_w"] + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x), cache
 
 
+_decode_flat_ro.calls = 0      # flat decoder calls, for launch accounting
+
+
 def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
-           pos: int, cache: KVCache, cross_kv, *, cross_group: int = 1,
+           pos, cache: KVCache, cross_kv, *, cross_group: int = 1,
            ) -> tuple[torch.Tensor, KVCache]:
-    """Run the decoder on `tokens` [B, S] starting at position `pos` (one
-    offset for every row), attending to the self-attention cache and the
-    precomputed cross K/V (KVCache or int8 QuantKVCache). Handles prompt
-    prefill (S > 1) and single-token steps (S = 1). Writes the S new keys
-    and values into `cache` in place.
+    """Run the decoder on `tokens` [B, S] starting at position `pos`,
+    attending to the self-attention cache and the precomputed cross K/V
+    (KVCache or int8 QuantKVCache). Handles prompt prefill (S > 1) and
+    single-token steps (S = 1). Writes the S new keys and values into
+    `cache` in place.
+
+    `pos` is an int (every row at the same offset: one-shot decode) or an
+    integer [B] tensor (continuous batching: every slot at its own offset;
+    S·H ≤ 128 only). Cache key j is visible to a row iff j < its pos, plus
+    the new keys causally.
 
     Returns (logits [B, S, n_vocab_padded] fp32, the cache)."""
     if cross_group != 1:
@@ -381,19 +322,31 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
                                   "ported yet")
     if not isinstance(cache, KVCache):
         raise NotImplementedError("the int8 self-cache is not ported yet")
-    if not isinstance(pos, int):
-        raise NotImplementedError("per-row positions are not ported yet")
     dec = params["decoder"]
     B, S = tokens.shape
     n_head = cfg.n_text_head
     max_len = cache.k.shape[2]
+    per_row = torch.is_tensor(pos)
+    if per_row and pos.shape != (B,):
+        raise ValueError(f"per-row pos must be [{B}], got {tuple(pos.shape)}")
+    if S > max_len:
+        raise ValueError(f"{S} tokens do not fit a cache of {max_len}")
 
     x = dec["tok_emb"][tokens]
-    pos_ids = torch.arange(pos, pos + S, device=tokens.device)
+    if per_row:
+        pos = pos.long()
+        # Clamped like the reference's gather of out-of-range positions.
+        pos_ids = (pos[:, None] + torch.arange(S, device=tokens.device)
+                   ).clamp(max=cfg.n_text_ctx - 1)
+    else:
+        pos_ids = torch.arange(pos, pos + S, device=tokens.device)
     x = x + dec["pos_emb"][pos_ids].to(x.dtype)
 
     if S * n_head <= 128:
         return _decode_flat_ro(cfg, params, x, pos, cache, cross_kv)
+    if per_row:
+        raise NotImplementedError("per-row positions take the flat path "
+                                  "only (S·H <= 128), as in the reference")
 
     # Long prefill (S·H > 128): write the block into the cache, then attend
     # over the head views with a causal mask.

@@ -39,6 +39,8 @@ SIGNATURES = {
     "oh_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I,
                            ctypes.POINTER(_LL), _F, _I, _P],
     "oh_quantize_heads": [_P, _P, _P, _LL, _I, _I, _P],
+    "oh_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                            _I, _I, _F, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

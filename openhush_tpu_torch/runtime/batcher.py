@@ -1,0 +1,365 @@
+"""Continuous batching across concurrent sessions: the port of
+openhush_tpu/runtime/batcher.py without speculation.
+
+One decode step advances EVERY active slot by one token; admission and
+eviction happen between steps at fixed shapes. Device state (flat KV layout,
+as models/whisper/model.py):
+  cache_k/v [L, B, T, H*Dh]      per-slot self-attention KV
+  xkv_k/v   [L, B, A, H*Dh] int8 per-slot cross-attention KV, with
+  xkv_ks/vs [L, B, A, H]         per-(position, head) fp32 scales
+  tokens [B, T]                  prompt + generated ids
+  pos [B] / length [B]           per-row decode offsets
+  last_logits [B, V]             carried between steps
+  ts_*, finished, active, ...    per-row decode-rule state
+
+Differences from the reference, each with its reason:
+- The state is updated in place (the reference donates its buffers through
+  jitted functions and gets new ones back); `tokens` is written in place and
+  `pos` replaced, in that order, so a concurrent reader of pos then tokens
+  (EngineServer.peek) always finds tokens[:pos] written.
+- `step` runs its inner steps as a Python loop of decode steps.
+- Sampling rows (temperature > 0) draw from one torch.Generator per slot,
+  seeded at admission (EngineServer passes server.slot_seed), so a row's
+  draws depend only on its own seed, as the reference's per-row keys do;
+  they are not the reference's random numbers. The per-slot temperatures and
+  generators live on the host.
+- Not ported: draft-model state and `spec_step` (ROADMAP queue A item 13)
+  and the int8 self-cache with its scales (item 10); asking for either
+  raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from openhush_tpu_torch.device import resolve_device
+from openhush_tpu_torch.models.whisper import decoding, model as whisper
+from openhush_tpu_torch.models.whisper.config import WhisperConfig
+from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+
+NEG_INF = decoding.NEG_INF
+
+
+@dataclasses.dataclass
+class SlotState:
+    cache_k: torch.Tensor
+    cache_v: torch.Tensor
+    xkv_k: torch.Tensor          # int8 [L, B, A, H*Dh]
+    xkv_ks: torch.Tensor         # f32  [L, B, A, H]
+    xkv_v: torch.Tensor
+    xkv_vs: torch.Tensor
+    tokens: torch.Tensor         # [B, T] int64
+    pos: torch.Tensor            # [B] int64: next cache write offset
+    prompt_len: torch.Tensor     # [B] int64
+    length: torch.Tensor         # [B] int64: generated tokens so far
+    sum_logprob: torch.Tensor    # [B] f32
+    no_speech: torch.Tensor      # [B] f32
+    last_logits: torch.Tensor    # [B, V] f32
+    active: torch.Tensor         # [B] bool
+    finished: torch.Tensor       # [B] bool
+    ts_prev: torch.Tensor        # [B] bool
+    ts_prevprev: torch.Tensor    # [B] bool
+    ts_floor: torch.Tensor       # [B] int64
+    use_ts: torch.Tensor         # [B] bool: per-session timestamps flag
+    prev_tok: torch.Tensor       # [B] int64: last sampled token
+    prevprev_tok: torch.Tensor   # [B] int64
+    rep_count: torch.Tensor      # [B] int64: consecutive short-cycle repeats
+    degenerate: torch.Tensor     # [B] bool: aborted by the repetition guard
+    temperature: list            # [B] host floats: 0 = greedy, > 0 sampling
+    rng: list                    # [B] torch.Generator or None (host side)
+
+
+def _state_shapes(cfg: WhisperConfig, n_slots: int, dtype: torch.dtype,
+                  max_len: Optional[int], audio_ctx: Optional[int]) -> dict:
+    """{field: (shape, dtype)} of every device tensor of SlotState: the one
+    source of both init_state's allocation and state_bytes."""
+    B = n_slots
+    L, H = cfg.n_text_layer, cfg.n_text_head
+    HD = cfg.n_text_state
+    T = max_len or cfg.n_text_ctx
+    A = audio_ctx or cfg.n_audio_ctx
+    i64, f32 = torch.int64, torch.float32
+    shapes = {
+        "cache_k": ((L, B, T, HD), dtype), "cache_v": ((L, B, T, HD), dtype),
+        # Cross-KV slots are ALWAYS int8 (halves the dominant per-step read).
+        "xkv_k": ((L, B, A, HD), torch.int8), "xkv_ks": ((L, B, A, H), f32),
+        "xkv_v": ((L, B, A, HD), torch.int8), "xkv_vs": ((L, B, A, H), f32),
+        "tokens": ((B, T), i64), "last_logits": ((B, cfg.n_vocab_padded), f32),
+    }
+    for name in ("pos", "prompt_len", "length", "ts_floor", "prev_tok",
+                 "prevprev_tok", "rep_count"):
+        shapes[name] = ((B,), i64)
+    for name in ("sum_logprob", "no_speech"):
+        shapes[name] = ((B,), f32)
+    for name in ("active", "finished", "ts_prev", "ts_prevprev", "use_ts",
+                 "degenerate"):
+        shapes[name] = ((B,), torch.bool)
+    return shapes
+
+
+def _not_ported(int8_self_cache: bool, draft_cfg) -> None:
+    if int8_self_cache:
+        raise NotImplementedError("the int8 self-cache is not ported yet")
+    if draft_cfg is not None:
+        raise NotImplementedError("speculative serving (draft_cfg) is not "
+                                  "ported yet")
+
+
+def init_state(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
+               int8_self_cache: bool = False,
+               max_len: Optional[int] = None,
+               audio_ctx: Optional[int] = None,
+               draft_cfg: Optional[WhisperConfig] = None,
+               device=None) -> SlotState:
+    """audio_ctx < n_audio_ctx restricts the encoder context (whisper.cpp's
+    audio_ctx speed knob). `device` None means CUDA."""
+    _not_ported(int8_self_cache, draft_cfg)
+    device = resolve_device(device)
+    sp = WhisperTokenizer(cfg.n_langs).special
+    fill = {"tokens": sp.eot, "last_logits": NEG_INF,
+            "ts_floor": sp.timestamp_begin, "prev_tok": -1,
+            "prevprev_tok": -1}
+    tensors = {name: torch.full(shape, fill.get(name, 0), dtype=dt,
+                                device=device)
+               for name, (shape, dt) in _state_shapes(
+                   cfg, n_slots, dtype, max_len, audio_ctx).items()}
+    return SlotState(**tensors, temperature=[0.0] * n_slots,
+                     rng=[None] * n_slots)
+
+
+def state_bytes(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
+                int8_self_cache: bool = False,
+                max_len: Optional[int] = None,
+                audio_ctx: Optional[int] = None,
+                draft_cfg: Optional[WhisperConfig] = None) -> int:
+    """Exact device bytes init_state(...) allocates, from the same shape
+    table, so the two cannot drift. The server's memory budgeter uses it to
+    refuse slot counts that do not fit next to the weights."""
+    _not_ported(int8_self_cache, draft_cfg)
+    total = 0
+    for shape, dt in _state_shapes(cfg, n_slots, dtype, max_len,
+                                   audio_ctx).values():
+        n = 1
+        for d in shape:
+            n *= d
+        total += n * torch.empty((), dtype=dt).element_size()
+    return total
+
+
+def _self_cache(state: SlotState) -> whisper.KVCache:
+    return whisper.KVCache(state.cache_k, state.cache_v)
+
+
+def _xkv(state: SlotState, rows=slice(None)) -> whisper.QuantKVCache:
+    return whisper.QuantKVCache(state.xkv_k[:, rows], state.xkv_ks[:, rows],
+                                state.xkv_v[:, rows], state.xkv_vs[:, rows])
+
+
+def _prefill_row(cfg: WhisperConfig, params, state: SlotState, slot: int,
+                 prompt: Sequence[int], use_timestamps: bool,
+                 temperature: float, seed: int) -> None:
+    """Shared tail of admit/readmit: zero the slot's self-cache, prefill the
+    prompt against the cross-KV the slot holds, reset every per-slot
+    field."""
+    sp = WhisperTokenizer(cfg.n_langs).special
+    dev = state.tokens.device
+    state.cache_k[:, slot].zero_()
+    state.cache_v[:, slot].zero_()
+    rows = slice(slot, slot + 1)
+    row_cache = whisper.KVCache(state.cache_k[:, rows], state.cache_v[:, rows])
+    p = torch.tensor([list(prompt)], dtype=torch.int64, device=dev)
+    logits, _ = whisper.decode(cfg, params, p, 0, row_cache,
+                               _xkv(state, rows))
+    sot_probs = torch.softmax(logits[:, 0].float(), dim=-1)
+    state.tokens[slot] = sp.eot
+    state.tokens[slot, :len(prompt)] = p[0]
+    for name, value in (("pos", len(prompt)), ("prompt_len", len(prompt)),
+                        ("length", 0), ("sum_logprob", 0.0),
+                        ("active", True), ("finished", False),
+                        ("ts_prev", False), ("ts_prevprev", False),
+                        ("ts_floor", sp.timestamp_begin),
+                        ("use_ts", bool(use_timestamps)), ("prev_tok", -1),
+                        ("prevprev_tok", -1), ("rep_count", 0),
+                        ("degenerate", False)):
+        getattr(state, name)[slot] = value
+    state.no_speech[slot] = sot_probs[0, sp.no_speech]
+    state.last_logits[slot] = logits[0, -1].float()
+    state.temperature[slot] = float(temperature)
+    state.rng[slot] = (torch.Generator(device=dev).manual_seed(int(seed))
+                       if temperature > 0 else None)
+
+
+@torch.no_grad()
+def admit(cfg: WhisperConfig, params, state: SlotState, slot: int,
+          new_xkv: whisper.QuantKVCache, prompt: Sequence[int],
+          use_timestamps: bool, *, prompt_len: int,
+          temperature: float = 0.0, seed: int = 0,
+          row: int = 0) -> SlotState:
+    """Install a session into `slot` and prefill its prompt.
+
+    new_xkv: quantized cross-KV ([L, k, A, H*Dh] int8 + [L, k, A, H]
+    scales) of k prepared windows; `row` picks which one to install.
+    prompt: prompt_len token ids. temperature > 0 switches the row to
+    sampling from a generator seeded `seed` (the fallback ladder)."""
+    if len(prompt) != prompt_len:
+        raise ValueError(f"prompt has {len(prompt)} ids, not {prompt_len}")
+    for name, src in (("xkv_k", new_xkv.k), ("xkv_ks", new_xkv.k_scale),
+                      ("xkv_v", new_xkv.v), ("xkv_vs", new_xkv.v_scale)):
+        getattr(state, name)[:, slot] = src[:, row]
+    _prefill_row(cfg, params, state, slot, prompt, use_timestamps,
+                 temperature, seed)
+    return state
+
+
+@torch.no_grad()
+def readmit(cfg: WhisperConfig, params, state: SlotState, slot: int,
+            prompt: Sequence[int], use_timestamps: bool, *,
+            prompt_len: int, temperature: float, seed: int) -> SlotState:
+    """Re-prefill `slot` from the cross-KV it already holds: the
+    temperature-fallback retry path (no re-encode)."""
+    if len(prompt) != prompt_len:
+        raise ValueError(f"prompt has {len(prompt)} ids, not {prompt_len}")
+    _prefill_row(cfg, params, state, slot, prompt, use_timestamps,
+                 temperature, seed)
+    return state
+
+
+def admit_many(cfg: WhisperConfig, params, state: SlotState, slots,
+               new_xkv: whisper.QuantKVCache, prompts, use_timestamps, *,
+               prompt_len: int, temperatures, seeds, rows) -> SlotState:
+    """Install k sessions from ONE prepared batch (all sharing `new_xkv`
+    and prompt_len): the reference's one-dispatch install, here the same
+    admits one after another."""
+    for i, slot in enumerate(slots):
+        admit(cfg, params, state, int(slot), new_xkv, prompts[i],
+              bool(use_timestamps[i]), prompt_len=prompt_len,
+              temperature=float(temperatures[i]), seed=int(seeds[i]),
+              row=int(rows[i]))
+    return state
+
+
+def _filter_logits(lg, *, suppress_mask, length, ts_state, use_ts, sp,
+                   blank_mask, is_ts, max_initial_index):
+    """The per-step [B, V] filter stack, every row at its own decode clock
+    (`length`)."""
+    sp_consts = (sp.timestamp_begin, sp.eot)
+    lg = torch.where(suppress_mask[None, :], NEG_INF, lg)
+    first = length == 0
+    lg = torch.where(first[:, None] & blank_mask[None, :], NEG_INF, lg)
+    lg_ts = decoding._timestamp_filter(lg, sp_consts, ts_state, length,
+                                       max_initial_index)
+    lg = torch.where(use_ts[:, None], lg_ts, lg)
+    no_ts_mask = use_ts[:, None] | ~is_ts[None, :]
+    return torch.where(no_ts_mask, lg, NEG_INF)
+
+
+def _choose_tokens(lg, state: SlotState):
+    """Greedy argmax, or per-row temperature sampling (Gumbel-max on
+    lg / T with the row's own generator) where the row's temperature > 0.
+    Returns (token [B] int64, logprobs [B, V])."""
+    logprobs = torch.log_softmax(lg, dim=-1)
+    nxt = torch.argmax(lg, dim=-1)
+    rows = [b for b, t in enumerate(state.temperature) if t > 0]
+    if rows:
+        idx = torch.tensor(rows, device=lg.device)
+        u = torch.stack([torch.rand(lg.shape[1], generator=state.rng[b],
+                                    device=lg.device) for b in rows])
+        temps = torch.tensor([max(state.temperature[b], 1e-6) for b in rows],
+                             device=lg.device)
+        gumbel = -torch.log(-torch.log(u))
+        nxt[idx] = torch.argmax(lg[idx] / temps[:, None] + gumbel, dim=-1)
+    return nxt, logprobs
+
+
+@torch.no_grad()
+def step(cfg: WhisperConfig, params, state: SlotState,
+         suppress_mask: torch.Tensor, *, inner_steps: int = 8,
+         max_initial_index: int = 50, blank_token: int = 220,
+         rep_threshold: int = 12,
+         room_cap: Optional[int] = None) -> SlotState:
+    """Advance every active unfinished slot by `inner_steps` tokens (greedy,
+    or sampled where the row's temperature > 0). A row whose last
+    `rep_threshold` tokens all short-cycle (period 1 or 2) is finished early
+    with `degenerate=True`: the repetition guard. Only live rows advance
+    `pos`; a row finishes at `room_cap` (default: the buffer width - 1)."""
+    sp = WhisperTokenizer(cfg.n_langs).special
+    sp_consts = (sp.timestamp_begin, sp.eot)
+    eot = sp.eot
+    B, T = state.tokens.shape
+    cap = T - 1 if room_cap is None else room_cap
+    ids = torch.arange(state.last_logits.shape[1], device=state.tokens.device)
+    blank_mask = (ids == blank_token) | (ids == eot)
+    is_ts_ids = ids >= sp.timestamp_begin
+    b_idx = torch.arange(B, device=ids.device)
+    xkv = _xkv(state)
+
+    for _ in range(inner_steps):
+        st = state
+        ts_state = (st.ts_prev, st.ts_prevprev, st.ts_floor)
+        lg = _filter_logits(st.last_logits, suppress_mask=suppress_mask,
+                            length=st.length, ts_state=ts_state,
+                            use_ts=st.use_ts, sp=sp, blank_mask=blank_mask,
+                            is_ts=is_ts_ids,
+                            max_initial_index=max_initial_index)
+        nxt, logprobs = _choose_tokens(lg, st)
+        live = st.active & ~st.finished
+        nxt = torch.where(live, nxt, eot)
+
+        # Repetition guard: consecutive period-1/2 cycles of text tokens.
+        is_text = (nxt != eot) & (nxt < sp.timestamp_begin)
+        rep = live & is_text & ((nxt == st.prev_tok) | (nxt == st.prevprev_tok))
+        rep_count = torch.where(live, torch.where(rep, st.rep_count + 1, 0),
+                                st.rep_count)
+        degenerate_now = live & (rep_count >= rep_threshold)
+
+        tok_lp = torch.gather(logprobs, -1, nxt[:, None])[:, 0]
+        new_ts = decoding._update_ts_state(ts_state, nxt, sp_consts,
+                                           st.length)
+        keep = lambda new, old: torch.where(live, new, old)
+        out_of_room = st.pos >= cap
+        finished = st.finished | (live & ((nxt == eot) | out_of_room
+                                          | degenerate_now))
+
+        # The token lands at each live row's pos; then the decode step.
+        at = st.pos.clamp(max=T - 1)
+        st.tokens[b_idx, at] = torch.where(live, nxt, st.tokens[b_idx, at])
+        logits, _ = whisper.decode(cfg, params, nxt[:, None], st.pos,
+                                   _self_cache(st), xkv)
+
+        st.prevprev_tok = keep(st.prev_tok, st.prevprev_tok)
+        st.prev_tok = keep(nxt, st.prev_tok)
+        st.rep_count = rep_count
+        st.degenerate = st.degenerate | degenerate_now
+        st.sum_logprob = st.sum_logprob + torch.where(live, tok_lp, 0.0)
+        st.length = st.length + live.long()
+        st.ts_prev = keep(new_ts[0], st.ts_prev)
+        st.ts_prevprev = keep(new_ts[1], st.ts_prevprev)
+        st.ts_floor = keep(new_ts[2], st.ts_floor)
+        st.finished = finished
+        st.last_logits = logits[:, -1].float()
+        st.pos = st.pos + (live & ~finished).long()
+    return state
+
+
+def spec_step(*args, **kwargs) -> SlotState:
+    """The speculative twin of `step` (a draft model proposes token blocks
+    that the big model verifies in one pass): not ported yet."""
+    raise NotImplementedError("speculative serving (spec_step) is not "
+                              "ported yet")
+
+
+def release(state: SlotState, slot_mask) -> SlotState:
+    """Mark slots in slot_mask ([B] bool, on the host) as free: only the
+    active/finished flags change, and the host-side sampling state."""
+    mask = torch.as_tensor(slot_mask, dtype=torch.bool)
+    for b, free in enumerate(mask.tolist()):
+        if free:
+            state.temperature[b] = 0.0
+            state.rng[b] = None
+    mask = mask.to(state.active.device)
+    state.active &= ~mask
+    state.finished &= ~mask
+    return state

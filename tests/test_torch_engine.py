@@ -171,9 +171,15 @@ def test_cli_output_parses(fmt):
 
 
 def test_cli_refuses_several_files(capsys):
+    """Several files are no longer refused: they run through the serving
+    path, and the text output heads each file's transcript with its path."""
     from openhush_tpu_torch import cli
     data = os.path.join(REPO, "tests", "data")
-    rc = cli.main(["transcribe", os.path.join(data, "speechlike.wav"),
-                   os.path.join(data, "tone_sweep.wav"), "--device", "cpu"])
-    assert rc == 2
-    assert "one file" in capsys.readouterr().err
+    paths = [os.path.join(data, "speechlike.wav"),
+             os.path.join(data, "tone_sweep.wav")]
+    rc = cli.main(["transcribe", *paths, "--model", "test", "--random-init",
+                   "--dtype", "float32", "--device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert [line for line in out.splitlines() if line.startswith("--- /")] \
+        == [f"--- {p} ---" for p in paths]
