@@ -11,11 +11,15 @@ Phases, each printing its own lines and its seconds:
      serving step at 8 slots), with its time, the plain version's, the
      least time the card could take (bound) and, where one PyTorch call
      computes the same function, that call's time; K4 and K5 are also held
-     to each other bit for bit, and in the TPU kernel's own function;
+     to each other bit for bit, and in the TPU kernel's own function; the
+     encoder attention's backward kernels K6 (dK, dV) and K7 (dQ) and K2's
+     residual output in fp32 and bf16, timed at the fine-tune's shape;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
-     against the one-shot greedy loop on the card: the same tokens;
+     against the one-shot greedy loop on the card: the same tokens; then
+     3 train_steps of "tiny" on the card against the CPU (losses and the
+     first step's gradients);
   4. the one-shot path: WhisperEngine("large-v3", bf16, random weights from
      seed 0) transcribes two requests (about 20 s and 45 s of speech-like
      audio), with every kernel's launch count read over exactly that run;
@@ -28,7 +32,12 @@ Phases, each printing its own lines and its seconds:
   5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
      <wav> --model large-v3 --random-init --format json`, then the same with
      three WAVs (the serving path: a JSON list);
-then a `{"kernels": [...]}` line (launches from the serving path) and, last,
+  6. the training path: `finetune` on large-v3 in fp32 (random weights from
+     seed 0) over two synthetic WAVs, 5 steps, with the launch counts of the
+     encoder attention's forward in residual mode (K2) and of its backward
+     kernels (K6, K7) read over exactly that run;
+then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
+from the fine-tune for K6 and K7) and, last,
 the `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
@@ -104,6 +113,18 @@ def bound_ms(n_bytes: float, n_flops: float, kind: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / PEAK_FLOPS[kind] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_time(prof):
+    """Device busy time (us) of a device-only torch.profiler trace, and its
+    time by kernel name."""
+    busy, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    return busy, by_name
 
 
 def speechlike(secs: float, seed: int) -> np.ndarray:
@@ -349,6 +370,247 @@ def phase_decode_attention(da, quantize):
     return rows
 
 
+def phase_flash_backward(fa):
+    """K2's residual mode (the per-row log-sum-exp), K6 (dK, dV) and K7 (dQ)
+    at the large-v3 encoder's shapes (20 heads, T=1500, Dh=64, read through
+    the strided [B, T, H*Dh] projection layout as encode() does): against
+    their plain versions on the same inputs, in fp32 at the fine-tune
+    phase's shape (B=2) and in bf16 at B=1; then timed on the fp32 B=2
+    inputs that were checked, beside their bounds and the backward of SDPA
+    on the same inputs."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    H, T, D = 20, 1500, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def compare(B, dtype):
+        """K2's residual mode, K6 and K7 against their plain versions on one
+        set of inputs → (K6/K7's inputs, absolute errors of dq, dk, dv).
+        Max abs error relative to max|plain| per tensor: fp32 sums over 1500
+        keys in another order; bf16 outputs round to 8 bits of mantissa."""
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        o_tol = 1e-4 if dtype == torch.float32 else 1e-2
+        q, k, v, do = [torch.randn(B, T, H * D, generator=g, device=dev)
+                       .to(dtype).view(B, T, H, D).transpose(1, 2)
+                       for _ in range(4)]
+        o, lse = fa.flash_attention_lse(q, k, v)
+        o_plain, lse_plain = fa.attend_lse(q, k, v)
+        delta = fa.delta_rows(o, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        ref = fa.attend_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_plain).abs().max().item()
+        o_err = (o.float() - o_plain.float()).abs().max().item()
+        abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+        errs = {n: e / b.float().abs().max().item()
+                for (n, e), b in zip(abs_errs.items(), ref)}
+        log(f"K2 residual mode ({dtype}, B={B}): lse max_abs_err "
+            f"{lse_err:.3e} (tolerance 1e-4), output max_abs_err {o_err:.3e} "
+            f"(tolerance {o_tol})")
+        log(f"K6/K7 vs attend_backward ({dtype}, B={B}): max_abs_err / "
+            f"max|plain| " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tolerance {tol})")
+        check(lse_err <= 1e-4 and o_err <= o_tol, "K2 residual mode")
+        check(all(e <= tol for e in errs.values()), "K6/K7 vs plain")
+        return (q, k, v, do, lse, delta), abs_errs
+
+    compare(1, torch.bfloat16)
+    # The fine-tune's shape, fp32: these inputs are checked, then timed, and
+    # their errors are the kernels line's max_abs_err.
+    B = 2
+    args, abs_errs = compare(B, torch.float32)
+    err_dkv = max(abs_errs["dk"], abs_errs["dv"])
+    err_dq = abs_errs["dq"]
+    q, k, v, do = args[:4]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves)
+    lib = lambda wrt: time_ms(lambda: torch.autograd.grad(
+        out, wrt, do, retain_graph=True))
+    elems = B * H * T * D * 4            # one fp32 [B, H, T, Dh] tensor
+    rows_bytes = 2 * B * H * T * 4       # lse and delta
+    k2_ms = time_ms(lambda: fa.flash_attention_lse(q, k, v))
+    log(f"  K2 residual mode (fp32, B=2): {k2_ms:.4f} ms; inference mode "
+        f"{time_ms(lambda: fa.flash_attention(q, k, v)):.4f} ms")
+    rows = []
+    for name, fn, plain, wrt, n_out, n_mm, err in (
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             fa.backward_dkv_plain, leaves[1:], 2, 4, err_dkv),
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             fa.backward_dq_plain, leaves[:1], 1, 3, err_dq)):
+        # n_mm T x T x Dh products: S and dP recomputed, then dV and dK (K6)
+        # or dQ (K7); each input read once, each output written once.
+        b, by = bound_ms((4 + n_out) * elems + rows_bytes,
+                         n_mm * 2 * B * H * T * T * D, "fp32")
+        rows.append(dict(
+            name=name, source="openhush_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=("jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                      + ("941" if n_out == 2 else "1287")),
+            counter=fn, max_abs_err=err,
+            ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: plain(*args)),
+            bound_ms=b, bound_by=by, library_ms=lib(wrt)))
+    for r in rows:
+        log(f"  {r['name']} (fp32, B=2): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), SDPA backward for the same gradients "
+            f"{r['library_ms']:.4f} ms")
+    return rows
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.detach().clone().to(dev)
+
+
+def train_batch(cfg, B, S, seed):
+    """A numpy batch of mel [B, n_mels, 3000], tokens and targets [B, S]
+    (targets the next token, the first three positions ignored)."""
+    rng = np.random.default_rng(seed)
+    mel = rng.standard_normal((B, cfg.n_mels, 3000)).astype(np.float32)
+    tokens = rng.integers(0, cfg.n_vocab, (B, S)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    targets[:, :3] = -100
+    return mel, tokens, targets
+
+
+def phase_train_tiny(train, weights, get_config, fa):
+    """tiny, fp32, training: the first step's gradients and the losses of 3
+    train_steps on the card (encoder attention on K2's residual mode, K6,
+    K7) against the CPU (autograd of the plain attention), from the same
+    parameters on the same batch."""
+    cfg = get_config("tiny")
+    cpu = weights.init_params(cfg, torch.Generator().manual_seed(SEED + 60),
+                              torch.float32, "cpu")
+    batch = train_batch(cfg, 2, 24, SEED + 61)
+    counters = (fa.flash_attention_lse, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for fn in counters:
+            fn.launches = 0
+        params = to_device(cpu, dev)
+        mel, tokens, targets = (torch.from_numpy(a).to(dev) for a in batch)
+        opt = train.make_optimizer(lr=1e-4, warmup_steps=1, total_steps=5)
+        state = opt.init(params)
+        _, grads = train.value_and_grad(cfg, params, mel, tokens, targets)
+        losses = [float(train.train_step(cfg, opt, params, state, mel, tokens,
+                                         targets)[2]) for _ in range(3)]
+        out[dev] = (losses, [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
+    grad_err = max(((a - b).abs().max() / a.abs().max().clamp(min=1e-12)
+                    ).item() for a, b in zip(g_cpu, g_gpu))
+    log(f"  tiny fp32 training: losses CPU {l_cpu}, card {l_gpu}; relative "
+        f"error {loss_err:.3e} (tolerance 1e-4); first-step gradients max "
+        f"abs error / max|CPU| per leaf {grad_err:.3e} (tolerance 1e-3)")
+    check(all(math.isfinite(x) for x in l_gpu), "tiny training losses finite")
+    check(loss_err <= 1e-4 and grad_err <= 1e-3, "tiny training card vs CPU")
+    n = 4 * cfg.n_audio_layer          # value_and_grad, then 3 steps
+    check(all(fn.launches == n for fn in counters),
+          "the card ran K2 residual mode, K6 and K7 once per encoder layer "
+          "and step")
+
+
+def phase_finetune(data, train, weights, get_config, fa, steps=5):
+    """The training path at full width: large-v3 (32+32 layers, d=1280, 128
+    mels) in fp32 on random weights from init_params, `finetune` over a
+    WhisperDataset of exactly 2 synthetic WAVs (so every epoch is the same
+    batch, only its row order changes), batch 2, 64 tokens (S·H = 1280,
+    the long regime), `steps` epochs = `steps` steps with warmup 1, lr 1e-5
+    (the reference's default). lr is 0 on the first update, so the second
+    loss equals the first; the loss then falls. Every encoder layer runs
+    K2 in residual mode, K6 and K7 once per step."""
+    from openhush_tpu_torch.audio.wav import save_wav
+    cfg = get_config("large-v3")
+    counters = (fa.flash_attention_lse, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq)
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = []
+        for i, (secs, text) in enumerate(((8.0, "the quick brown fox jumps "
+                                           "over the lazy dog"),
+                                          (12.0, "fine tuning on the card "
+                                           "with random weights"))):
+            save_wav(os.path.join(tmp, f"utt{i}.wav"),
+                     speechlike(secs, SEED + 70 + i))
+            lines.append(f"utt{i}.wav\t{text}")
+        manifest = os.path.join(tmp, "manifest.tsv")
+        with open(manifest, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        ds = data.WhisperDataset(data.load_manifest(manifest), cfg,
+                                 batch_size=2, max_tokens=64, seed=SEED)
+        torch.cuda.empty_cache()
+        params = weights.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            torch.float32)
+        walls = []
+        step = train.train_step
+
+        def timed_step(*args):
+            t0 = time.monotonic()
+            res = step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            return res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        train.train_step = timed_step
+        try:
+            t0 = time.monotonic()
+            _, losses = data.finetune(cfg, params, ds, epochs=steps, lr=1e-5)
+            wall = time.monotonic() - t0
+        finally:
+            train.train_step = step
+        launches = {fn.__name__: fn.launches for fn in counters}
+        trace_batch = next(ds.epoch())        # for the trace below
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in train.leaves(params))
+    log(f"  large-v3 fp32 fine-tune: {len(losses)} steps in {wall:.2f} s "
+        f"wall, median step {sorted(walls)[len(walls) // 2] * 1e3:.1f} ms "
+        f"(steps {[round(w * 1e3, 1) for w in walls]} ms), peak memory "
+        f"{peak:.2f} GiB ({n_params / 1e9:.3f} B parameters); losses "
+        f"{losses}; launches {launches}")
+    n = cfg.n_audio_layer * steps
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          "fine-tune losses finite")
+    check(abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0]),
+          "loss 2 equals loss 1 (lr 0 on the first update)")
+    check(losses[-1] < losses[0], "the fine-tune loss fell")
+    check(all(c == n for c in launches.values()),
+          f"K2 residual mode, K6 and K7 ran {n} times (32 x steps)")
+
+    # Where a step's time goes: one more step (not counted above), on a
+    # fresh optimizer state, under a device-only trace.
+    from torch.profiler import ProfilerActivity, profile
+    mel, tokens, targets = (torch.from_numpy(a).cuda() for a in (
+        trace_batch.mel, trace_batch.tokens, trace_batch.targets))
+    opt = train.make_optimizer(lr=1e-5, warmup_steps=1, total_steps=steps)
+    state = opt.init(params)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        train.train_step(cfg, opt, params, state, mel, tokens, targets)
+        torch.cuda.synchronize()
+        traced = time.monotonic() - t0
+    busy, by_name = device_time(prof)
+    if busy == 0:
+        log("  fine-tune trace: the profiler saw no device events; device "
+            "time not measured")
+    else:
+        flash = sum(us for name, us in by_name.items() if "flash" in name)
+        log(f"  traced step: {traced * 1e3:.1f} ms wall, device busy "
+            f"{busy / 1e3:.1f} ms, device idle share "
+            f"{1 - busy / 1e6 / traced:.3f}; flash kernels (K2, K6, K7) "
+            f"{flash / 1e3:.1f} ms = {flash / busy:.1%}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+    del params, state, opt
+    return launches
+
+
 def phase_reference(WhisperEngine, decoding, whisper, weights, get_config,
                     frontend, mel, quantize):
     """tiny, fp32: the card (kernels) against the CPU (plain versions) on
@@ -360,9 +622,7 @@ def phase_reference(WhisperEngine, decoding, whisper, weights, get_config,
     cfg = get_config("tiny")
     cpu = weights.init_params(cfg, torch.Generator().manual_seed(SEED),
                               torch.float32, "cpu")
-    gpu = {k: {n: (t.cuda() if torch.is_tensor(t) else
-                   {m: u.cuda() for m, u in t.items()})
-               for n, t in v.items()} for k, v in cpu.items()}
+    gpu = to_device(cpu, "cuda")
     audio = speechlike(8.0, SEED + 1)
     out = {}
     for name, params, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
@@ -563,12 +823,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer):
         srv._step_state()
         torch.cuda.synchronize()
         traced = time.monotonic() - t0
-    busy, by_name = 0.0, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy += us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy, by_name = device_time(prof)
     log(f"  8 busy slots: {per_step * 1e3:.2f} ms host wall per decode step "
         f"untraced ({n} dispatches of {srv.inner_steps} steps)")
     if busy == 0:
@@ -618,12 +873,7 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32):
     # Decoder calls: the prefill, then one per sampled token but the last.
     n = min(steps, int((res.tokens[0, res.prompt_len:]
                         != eng.tokenizer.special.eot).sum()) + 1)
-    busy, by_name = 0.0, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy += us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy, by_name = device_time(prof)
     log(f"  window front (log-mel + encoder + int8 cross-KV): "
         f"{front_s * 1e3:.1f} ms host wall")
     if busy == 0:
@@ -696,6 +946,7 @@ def main() -> int:
     from openhush_tpu_torch.runtime import longform
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.runtime.server import EngineServer
+    from openhush_tpu_torch.training import data, train
 
     t = time.monotonic()
     smi = subprocess.run(
@@ -715,7 +966,8 @@ def main() -> int:
     t = time.monotonic()
     rows = phase_kernels(frontend, flash_attention, quantize, mel)
     rows += phase_decode_attention(decode_attention, quantize)
-    for r in rows[3:]:
+    rows += phase_flash_backward(flash_attention)
+    for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), library {r['library_ms']}")
@@ -728,7 +980,8 @@ def main() -> int:
     phase_server_tiny(cfg_tiny, tiny_gpu, WhisperEngine, EngineServer,
                       decoding, whisper, frontend, mel)
     del tiny_gpu
-    log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot: "
+    phase_train_tiny(train, weights, get_config, flash_attention)
+    log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot, training: "
         f"{time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
@@ -749,6 +1002,11 @@ def main() -> int:
     t = time.monotonic()
     phase_cli()
     log(f"phase 5 CLI: {time.monotonic() - t:.1f} s")
+
+    t = time.monotonic()
+    launches.update(phase_finetune(data, train, weights, get_config,
+                                   flash_attention))
+    log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
 
     kernels = []
     for r in rows:

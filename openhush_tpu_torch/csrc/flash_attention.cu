@@ -21,66 +21,25 @@
 // feeds four FMAs. The probabilities reuse the key tile's shared memory.
 // q, k, v and o are read and written through strides, so the [B, T, H*Dh]
 // projections need no split-heads copy.
+//
+// Residual mode (training): given an `lse` pointer, the kernel also writes
+// each query row's log-sum-exp of the scaled scores, m + log l, as fp32
+// [B, H, Tq], which the backward kernels (flash_attention_bwd.cu) read.
+// This is the counterpart of the TPU kernel's save_residuals mode, which
+// keeps m and l apart. Without the pointer nothing else is written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
+
 namespace {
 
-constexpr int BQ = 64;                        // queries per CTA
-constexpr int BK = 64;                        // keys per tile
-constexpr int DH = 64;                        // head dim
-constexpr int LD = DH + 4;                    // padded smem row (floats)
-constexpr int THREADS = 256;
-constexpr size_t SMEM_BYTES = 3 * BQ * LD * sizeof(float);
-
-__device__ __forceinline__ void unpack16(const uint4& raw, float* out, float) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-__device__ __forceinline__ void unpack16(const uint4& raw, float* out, __nv_bfloat16) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {                // element 2i sits in the low half
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// rows [row0, row0+64) x DH of a strided [rows, DH] matrix -> dst [64][LD]
-// fp32; rows at or past n_rows read as zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = DH / VEC;               // 16-byte chunks per row
-  for (int c = threadIdx.x; c < BQ * CPR; c += THREADS) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * VEC;
-    float vals[VEC];
-    if (row0 + r < n_rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + col);
-      unpack16(raw, vals, T());
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + col + i) =
-          make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
-  }
-}
+constexpr int BQ = TILE;                      // queries per CTA
+constexpr int BK = TILE;                      // keys per tile
+constexpr size_t SMEM_BYTES = 3 * TILE_FLOATS * sizeof(float);
 
 struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
@@ -89,8 +48,9 @@ struct Strides {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Tq,
-                       int Tk, Strides st, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int Tq, int Tk, Strides st,
+                       float scale) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
   float* Ks = Qs + BQ * LD;                     // [BK][LD], then probs [BQ][LD]
@@ -127,27 +87,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
-    }
+    tile_dot(s, Qs, Ks, ty, tx);
 
     // Every key tile holds key k0 < Tk, so each row max below is finite.
 #pragma unroll
@@ -186,27 +126,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) Ps[(4 * ty + i) * LD + tx + 16 * j] = s[i][j];
     __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (4 * ty + i) * LD + kk);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        vv[c] = *reinterpret_cast<const float4*>(Vs + (kk + c) * LD + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p[4] = {pv[i].x, pv[i].y, pv[i].z, pv[i].w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[i][0] = fmaf(p[c], vv[c].x, acc[i][0]);
-          acc[i][1] = fmaf(p[c], vv[c].y, acc[i][1]);
-          acc[i][2] = fmaf(p[c], vv[c].z, acc[i][2]);
-          acc[i][3] = fmaf(p[c], vv[c].w, acc[i][3]);
-        }
-      }
-    }
+    tile_matmul(acc, Ps, Vs, ty, tx);
     __syncthreads();                            // before the next tile load
   }
 
@@ -218,13 +138,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* op = o + b * st.ob + h * st.oh + (long long)row * st.ot + 4 * tx;
 #pragma unroll
       for (int c = 0; c < 4; ++c) store(op + c, acc[i][c] * inv);
+      // The 16 lanes of a row hold the same m and l after the shuffles.
+      if (lse != nullptr && tx == 0)
+        lse[((long long)b * gridDim.y + h) * Tq + row] = m_i[i] + logf(l_i[i]);
     }
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Tq, int Tk, const long long* s, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Tq, int Tk, const long long* s, float scale,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,7 +157,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                       s[6], s[7], s[8], s[9], s[10], s[11]};
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Tq, Tk, st, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Tq, Tk, st, scale);
   return (int)cudaGetLastError();
 }
 
@@ -243,15 +166,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // q [B,H,Tq,64], k and v [B,H,Tk,64], o [B,H,Tq,64], all of one dtype, fp32
 // (dtype 0) or bf16 (dtype 1), addressed through `strides` in elements:
 // (b, h, t) for q, k, v, o in that order; the last dim is contiguous, and
-// every row starts on a 16-byte boundary.
+// every row starts on a 16-byte boundary. `lse` is null, or a contiguous
+// fp32 [B, H, Tq] buffer for the per-row log-sum-exp (residual mode).
 extern "C" int oh_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int B, int H, int Tq, int Tk,
-                                  const long long* strides, float scale,
-                                  int dtype, void* stream) {
+                                  void* o, void* lse, int B, int H, int Tq,
+                                  int Tk, const long long* strides,
+                                  float scale, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, H, Tq, Tk, strides, scale, st);
+    return launch<float>(q, k, v, o, l, B, H, Tq, Tk, strides, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, Tq, Tk, strides, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, o, l, B, H, Tq, Tk, strides, scale,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }

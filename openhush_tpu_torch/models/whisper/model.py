@@ -377,3 +377,43 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x), cache
+
+
+def forward(cfg: WhisperConfig, params: Params, mel: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward (training): mel [B, n_mels, 3000], tokens
+    [B, S] → logits [B, S, n_vocab_padded] fp32. Differentiable.
+
+    The reference (model.py:forward) runs `decode` over an empty cache of
+    S rows with the fp cross-KV. Here the decoder attends over the block's
+    own S keys with a causal mask in plain PyTorch (`_attend_views`), which
+    is the function of both of the reference's branches (the flat path for
+    S·H <= 128, the long prefill above it: XLA einsums on the TPU too). It
+    does not go through `decode`: the decode kernels have no backward, and
+    the cache writes in place would break autograd's version checks. The
+    encoder's attention runs on the flash kernels, backward included."""
+    feats = encode(cfg, params, mel)
+    cross_kv = compute_cross_kv(cfg, params, feats)
+    dec = params["decoder"]
+    B, S = tokens.shape
+    n_head = cfg.n_text_head
+    dh = cfg.n_text_state // n_head
+    T_a = feats.shape[1]
+    x = dec["tok_emb"][tokens]
+    x = x + dec["pos_emb"][:S].to(x.dtype)
+    causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+    heads = lambda t, T: t.view(B, T, n_head, dh)
+    for l, lp in enumerate(_layers(dec["layers"])):
+        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+        attn = _attend_views(heads(h @ lp["q_w"] + lp["q_b"], S),
+                             heads(h @ lp["k_w"], S),
+                             heads(h @ lp["v_w"] + lp["v_b"], S), causal)
+        x = x + attn @ lp["o_w"] + lp["o_b"]
+        h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+        attn = _attend_views(heads(h @ lp["xq_w"] + lp["xq_b"], S),
+                             heads(cross_kv.k[l], T_a),
+                             heads(cross_kv.v[l], T_a), None)
+        x = x + attn @ lp["xo_w"] + lp["xo_b"]
+        h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
+        x = x + _mlp(h, lp)
+    return _logits(cfg, dec, x)

@@ -192,6 +192,15 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
     return (out, probs) if return_probs else out
 
 
+def _no_gradient(name, *tensors):
+    """The decode kernels have no backward: raise rather than let autograd
+    see an output with no grad_fn and drop the gradient without a word."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; call it under "
+                           f"torch.no_grad() (decoding needs no gradient)")
+
+
 def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
             return_probs):
     if q3.device.type != "cuda":
@@ -212,7 +221,9 @@ def attend_decode(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, return_probs: bool = False):
     """Same function as `attend_decode_plain`. CPU tensors take the plain
     version; CUDA tensors launch the kernel's direct load path (K4). A
-    `lengths` tensor must be int32; every query must see at least one key."""
+    `lengths` tensor must be int32; every query must see at least one key.
+    Raises if an input needs a gradient: neither path has a backward."""
+    _no_gradient("attend_decode", q3, k, v, ks, vs)
     if q3.device.type == "cpu":
         return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,
                                    causal=causal, return_probs=return_probs)
@@ -228,6 +239,7 @@ def attend_decode_pipelined(q3: torch.Tensor, k: torch.Tensor,
                             return_probs: bool = False):
     """`attend_decode` on the kernel's cp.async load path (K5): the same
     outputs bit for bit."""
+    _no_gradient("attend_decode_pipelined", q3, k, v, ks, vs)
     if q3.device.type == "cpu":
         return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,
                                    causal=causal, return_probs=return_probs)
