@@ -3,17 +3,22 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines and its seconds:
-  1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
-     the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a);
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a),
+     and the count of wgmma instructions in K2's bf16 kernel;
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
      (large-v3, one 30 s window; for the decode attention K4/K5, the
      serving step at 8 slots), with its time, the plain version's, the
      least time the card could take (bound) and, where one PyTorch call
-     computes the same function, that call's time; K4 and K5 are also held
-     to each other bit for bit, and in the TPU kernel's own function; the
-     encoder attention's backward kernels K6 (dK, dV) and K7 (dQ) and K2's
-     residual output in fp32 and bf16, timed at the fine-tune's shape;
+     computes the same function, that call's time; K2 in bf16 also at
+     batch 2, at a T that is not a multiple of its tiles and on contiguous
+     heads; K5 is also held to itself bit for bit over two launches, checked
+     at an odd head count (its one-head kernel) and on three causal
+     queries, timed at batch 1 beside its bound, and both K4 and K5 are
+     checked in the TPU kernel's own function; the encoder attention's backward kernels K6
+     (dK, dV) and K7 (dQ) and K2's residual output in fp32 and bf16, timed
+     at the fine-tune's shape;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -169,24 +174,41 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
         plain_ms=time_ms(lambda: mel.log_mel_energies(audio, n_mels, n_frames)),
         bound_ms=b, bound_by=by, library_ms=None))
 
-    # K2: encoder attention, B=1, 20 heads, T=1500, Dh=64, bf16, read
-    # through the strided [B, T, H*Dh] projection layout as encode() does.
+    # K2: encoder attention, 20 heads, Dh=64, bf16 (the tensor-core kernel),
+    # read through the strided [B, T, H*Dh] projection layout as encode()
+    # does: B=1, T=1500 (checked, then timed), then B=2 at T=1500 and at
+    # T=333 (not a multiple of the 128-query or 64-key tiles), and B=1 on
+    # contiguous [B, H, T, Dh] heads (the tensor maps' other stride order).
     g = torch.Generator(device=dev).manual_seed(SEED)
-    B, H, T, D = 1, 20, 1500, 64
-    qkv = [torch.randn(B, T, H * D, generator=g, device=dev).to(torch.bfloat16)
-           .view(B, T, H, D).transpose(1, 2) for _ in range(3)]
-    ours = flash_attention.flash_attention(*qkv)
-    plain = flash_attention.attend(*qkv)
-    torch.cuda.synchronize()
-    err = (ours.float() - plain.float()).abs().max().item()
-    tol = 1e-2   # bf16 outputs; the plain version rounds probs to bf16
-    log(f"K2 flash_attention: max_abs_err {err:.3e} (tolerance {tol})")
-    check(err <= tol, "K2 flash_attention vs plain")
+    H, D = 20, 64
+    tol = 1e-2   # bf16 outputs; P rounded to bf16 (unnormalised, here)
+
+    def k2_inputs(B, T, heads_first=False):
+        x = [torch.randn(B, T, H * D, generator=g, device=dev)
+             .to(torch.bfloat16).view(B, T, H, D) for _ in range(3)]
+        return [t.permute(0, 2, 1, 3).contiguous() if heads_first
+                else t.transpose(1, 2) for t in x]
+
+    for B, T, heads_first in ((1, 1500, False), (2, 1500, False),
+                              (2, 333, False), (1, 200, True)):
+        qkv = k2_inputs(B, T, heads_first)
+        ours = flash_attention.flash_attention(*qkv)
+        plain = flash_attention.attend(*qkv)
+        torch.cuda.synchronize()
+        e = (ours.float() - plain.float()).abs().max().item()
+        log(f"K2 flash_attention (bf16, B={B}, T={T}, "
+            f"{'contiguous heads' if heads_first else 'projection layout'}"
+            f"): max_abs_err {e:.3e} (tolerance {tol})")
+        check(e <= tol and bool(torch.isfinite(ours).all()),
+              f"K2 flash_attention vs plain, B={B}, T={T}")
+        if (B, T) == (1, 1500):
+            err, main_qkv = e, qkv
+    qkv, (B, T) = main_qkv, (1, 1500)
     b, by = bound_ms(4 * B * H * T * D * 2, 4 * B * H * T * T * D, "bf16")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows.append(dict(
         name="flash_attention",
-        source="openhush_tpu_torch/csrc/flash_attention.cu",
+        source="openhush_tpu_torch/csrc/flash_attention_tc.cu",
         replaces="openhush_tpu/models/whisper/model.py:158",
         counter=flash_attention.flash_attention, max_abs_err=err,
         ms=time_ms(lambda: flash_attention.flash_attention(*qkv)),
@@ -227,8 +249,9 @@ def phase_decode_attention(da, quantize):
     """K4 and K5 at the serving step's shapes (large-v3, 8 slots, one query
     per row): the self-attention over the bf16 cache (T = 128, per-row
     positions, causal) on the direct path (K4), the cross-attention over
-    the int8 cross-KV (T = 1500) on the pipelined path (K5). Each mode also
-    runs on the other path: the two must agree bit for bit."""
+    the int8 cross-KV (T = 1500) on the cluster split (K5). Each mode also
+    runs on the other kernel: each within the plain version's tolerance,
+    and K5 the same bits over two launches."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     B, H, D, T_self, T_cross = SERVE_SLOTS, 20, 64, 128, 1500
@@ -243,20 +266,24 @@ def phase_decode_attention(da, quantize):
     lengths = (torch.randint(0, T_self, (B,), generator=g, device=dev)
                + 1).to(torch.int32)
     args = (q, k, v, lengths, H)
-    (o4, p4), (o5, p5) = (fn(*args, causal=True, return_probs=True)
-                          for fn in paths)
+    (o4, p4), (o5, p5), (o5b, p5b) = (
+        fn(*args, causal=True, return_probs=True) for fn in paths + paths[1:])
     plain, p_plain = da.attend_decode_plain(*args, causal=True,
                                             return_probs=True)
     torch.cuda.synchronize()
-    check(torch.equal(o4, o5) and torch.equal(p4, p5),
-          "K4/K5 bf16 self-attention bit-identical")
-    err = (o4.float() - plain.float()).abs().max().item()
-    perr = (p4 - p_plain).abs().max().item()
+    check(torch.equal(o5, o5b) and torch.equal(p5, p5b),
+          "K5 bf16 self-attention: the same bits over two launches")
     tol = 1e-2   # bf16 outputs (an ulp is 7.8e-3 at 1); fp32 sums reordered
-    log(f"K4 attend_decode (bf16 self, T={T_self}, causal, per-row "
-        f"lengths): max_abs_err {err:.3e} (tolerance {tol}), bf16 probs "
-        f"max_abs_err {perr:.3e}; direct and pipelined paths bit-identical")
-    check(err <= tol, "K4 vs plain")
+    for name, o, p in (("K4 attend_decode", o4, p4),
+                       ("  K5 path", o5, p5)):
+        e = (o.float() - plain.float()).abs().max().item()
+        perr = (p - p_plain).abs().max().item()
+        log(f"{name} (bf16 self, T={T_self}, causal, per-row lengths): "
+            f"max_abs_err {e:.3e} (tolerance {tol}), bf16 probs max_abs_err "
+            f"{perr:.3e}")
+        check(e <= tol, f"{name.strip()} bf16 self-attention vs plain")
+    err = (o4.float() - plain.float()).abs().max().item()
+    log("  K5 bf16 self-attention: the same bits over two launches")
     n_keys = int(lengths.sum())          # the rows this data needs read
     b, by = bound_ms(2 * n_keys * HD * 2 + 2 * B * HD * 2 + 4 * B,
                      4 * n_keys * HD, "fp32")
@@ -299,28 +326,58 @@ def phase_decode_attention(da, quantize):
                            dtype=torch.int32, device=dev)
     for lens in (lengths, None):
         args = (q, k8, v8, lens, H)
-        (o4, p4), (o5, p5) = (fn(*args, ks=ks, vs=vs, return_probs=True)
-                              for fn in paths)
+        (o4, p4), (o5, p5), (o5b, p5b) = (
+            fn(*args, ks=ks, vs=vs, return_probs=True)
+            for fn in paths + paths[1:])
         plain, p_plain = da.attend_decode_plain(*args, ks=ks, vs=vs,
                                                 return_probs=True)
         torch.cuda.synchronize()
-        check(torch.equal(o4, o5) and torch.equal(p4, p5),
-              "K4/K5 int8 cross-attention bit-identical")
-        err = (o5.float() - plain.float()).abs().max().item()
-        dp = (p5 - p_plain).abs()
+        check(torch.equal(o5, o5b) and torch.equal(p5, p5b),
+              "K5 int8 cross-attention: the same bits over two launches")
         n_vis = H * (int(lens.sum()) if lens is not None else B * T_cross)
+        for name, o, p in (("K5 attend_decode_pipelined", o5, p5),
+                           ("  K4 path", o4, p4)):
+            e = (o.float() - plain.float()).abs().max().item()
+            dp = (p - p_plain).abs()
+            share = dp.ne(0).sum().item() / n_vis
+            log(f"{name} (int8 cross, T={T_cross}, lengths "
+                f"{'per row' if lens is not None else 'all'}): max_abs_err "
+                f"{e:.3e} (tolerance 1e-2: bf16 outputs, and a prob level "
+                f"moved at a .5 tie moves an output by at most "
+                f"max_t(p*vs)); int8 prob levels max diff "
+                f"{dp.max().item():.0f} on {share:.2e} of visible keys "
+                f"(tolerance 1 level on <= 1e-3)")
+            check(e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+                  f"{name.strip()} int8 cross-attention vs plain")
+        err = (o5.float() - plain.float()).abs().max().item()
+        log("  K5 int8 cross-attention: the same bits over two launches")
+    # K5 takes int8 heads in pairs when their count is even (above): an odd
+    # count runs its one-head kernel; S = 3 causal queries (a prefill) the
+    # pairs with per-query lengths.
+    for n_head, S, causal in ((5, 1, False), (H, 3, True)):
+        hx = rnd(2, S, n_head * D).to(torch.bfloat16)
+        (kx, ksx), (vx, vsx) = (quantize.quantize_heads_plain(
+            rnd(2, T_cross, n_head * D).to(torch.bfloat16), n_head)
+            for _ in range(2))
+        lx = torch.tensor([T_cross - 1, 9], dtype=torch.int32, device=dev)
+        args = (hx, kx, vx, lx, n_head)
+        kw = dict(ks=ksx, vs=vsx, causal=causal, return_probs=True)
+        o5, p5 = da.attend_decode_pipelined(*args, **kw)
+        plain, p_plain = da.attend_decode_plain(*args, **kw)
+        e = (o5.float() - plain.float()).abs().max().item()
+        dp = (p5 - p_plain).abs()
+        n_vis = n_head * sum(min(int(n) + (s if causal else 0), T_cross)
+                             for n in lx for s in range(S))
         share = dp.ne(0).sum().item() / n_vis
-        log(f"K5 attend_decode_pipelined (int8 cross, T={T_cross}, lengths "
-            f"{'per row' if lens is not None else 'all'}): max_abs_err "
-            f"{err:.3e} (tolerance 1e-2: bf16 outputs, and a prob level "
-            f"moved at a .5 tie moves an output by at most max_t(p*vs)); "
-            f"int8 prob levels max diff {dp.max().item():.0f} on "
-            f"{share:.2e} of visible keys (tolerance 1 level on <= 1e-3); "
-            f"direct and pipelined paths bit-identical")
-        check(err <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
-              "K5 vs plain")
-    b, by = bound_ms(2 * B * T_cross * HD + 2 * B * T_cross * H * 4
-                     + 2 * B * HD * 2, 4 * B * T_cross * HD, "fp32")
+        log(f"  K5 int8, {n_head} heads, S={S}{', causal' if causal else ''}:"
+            f" max_abs_err {e:.3e} (tolerance 1e-2), prob levels max diff "
+            f"{dp.max().item():.0f} on {share:.2e} of visible keys")
+        check(e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+              f"K5 int8 {n_head} heads S={S} vs plain")
+    cross_bound = lambda nb: bound_ms(
+        2 * nb * T_cross * HD + 2 * nb * T_cross * H * 4 + 2 * nb * HD * 2,
+        4 * nb * T_cross * HD, "fp32")
+    b, by = cross_bound(B)
     cross_layers = [tuple(x.clone() for x in (k8, v8, ks, vs))
                     for _ in range(N_LAYER)]
     on_layers = lambda fn, batch=slice(None): rotate([
@@ -338,7 +395,8 @@ def phase_decode_attention(da, quantize):
     log(f"  K4 path on these shapes: "
         f"{time_ms(on_layers(da.attend_decode), iters=2 * N_LAYER):.4f} ms")
 
-    # The one-shot engine's step is batch 1 (20 CTAs a launch): its times.
+    # The one-shot engine's step is batch 1: its times (K5's row keeps its
+    # batch-1 time beside that batch's bound).
     lens1 = torch.tensor([100], dtype=torch.int32, device=dev)
     self_b1 = [tuple(x[:1, :T_self].clone() for x in (xk_f, xv_f))
                for _ in range(N_LAYER)]
@@ -349,6 +407,9 @@ def phase_decode_attention(da, quantize):
         cross_ms = time_ms(on_layers(fn, slice(0, 1)), iters=2 * N_LAYER)
         log(f"  batch 1 ({fn.__name__}): bf16 self T={T_self} (100 keys) "
             f"{self_ms:.4f} ms, int8 cross T={T_cross} {cross_ms:.4f} ms")
+        if fn is da.attend_decode_pipelined:
+            rows[-1]["batch1_ms"] = cross_ms
+            rows[-1]["batch1_bound_ms"] = cross_bound(1)[0]
     del cross_layers, self_b1
 
     # The TPU kernels' own function: q pre-scaled, no scales, int8 values
@@ -931,6 +992,26 @@ def phase_cli():
     log(json.dumps(data))
 
 
+def phase_sass(so, nvcc: str) -> None:
+    """K2's bf16 kernel runs on the tensor cores: count its warpgroup MMA
+    instructions (HGMMA) in the built library's SASS, by the toolkit's
+    cuobjdump, and fail if there are none."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log(f"  {cuobjdump} not found: K2's SASS not inspected")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    count, in_k2 = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            in_k2 = "flash_attention_tc_kernel" in line
+        elif in_k2 and "HGMMA" in line:
+            count += 1
+    log(f"  flash_attention_tc_kernel SASS: {count} HGMMA (wgmma) instructions")
+    check(count > 0, "K2 bf16 on the tensor cores (HGMMA in its SASS)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -962,6 +1043,7 @@ def main() -> int:
     for line in open(str(so) + ".log"):
         if "registers" in line or "spill" in line or "error" in line:
             log("  " + line.strip())
+    phase_sass(so, _build.nvcc())
 
     t = time.monotonic()
     rows = phase_kernels(frontend, flash_attention, quantize, mel)
@@ -970,7 +1052,10 @@ def main() -> int:
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
-            f"({r['bound_by']}), library {r['library_ms']}")
+            f"({r['bound_by']}), library {r['library_ms']}"
+            + (f"; batch 1: kernel {r['batch1_ms']:.4f} ms, bound "
+               f"{r['batch1_bound_ms'] * 1e3:.2f} us" if "batch1_ms" in r
+               else ""))
     log(f"phase 2 kernels vs plain: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
@@ -1018,6 +1103,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        for key in ("batch1_ms", "batch1_bound_ms"):
+            if key in r:
+                kernels[-1][key] = r[key]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

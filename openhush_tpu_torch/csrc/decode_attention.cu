@@ -1,13 +1,15 @@
 // Single-query decode attention over the flat [B, T, H*64] caches of the
-// decode step, with two load paths that give bit-identical results.
+// decode step, with two kernels that compute the same function: K4 (one CTA
+// per query streams the keys) and K5 (a thread-block cluster per query
+// splits the keys).
 //
 // Replaces two TPU kernels:
 //   openhush_tpu/ops/decode_attention.py:decode_cross_attend (body _kernel),
-//     the direct load path (PIPE = false);
+//     by K4, the direct load path (decode_attention_kernel);
 //   openhush_tpu/ops/decode_attention_dma.py:decode_cross_attend_dma (body
-//     _kernel), whose hand double-buffered HBM->VMEM copies become a 2-stage
-//     cp.async ring of T-tiles in shared memory (PIPE = true).
-// The role it fills on the decode step is the one XLA einsums fill in the
+//     _kernel), whose hand double-buffered HBM->VMEM copies become K5's
+//     slices, each put in flight whole (decode_attention_split_kernel).
+// The role they fill on the decode step is the one XLA einsums fill in the
 // JAX model (models/whisper/model.py:_attend_decode_flat, _multi, _ro), at
 // that production arithmetic, per query:
 //   QUANT (int8 K/V with per-(position, head) fp32 scales ks, vs [B, T, H]):
@@ -29,40 +31,76 @@
 //
 // Bound on an H100: bytes. A decode step reads each cache once per query
 // (large-v3, B=8: 30.7 MB of int8 cross K/V + 1.9 MB of scales per layer)
-// and does ~2 operations per byte. Design: one CTA of 128 threads per
-// (head, query, row); head dim 64, so a head's row is 64 B (int8) or 128 B
-// (bf16) at a stride of H*64 elements. Each thread loads 16 B, neighbouring
-// threads take the neighbouring 16 B of a row and then the next rows, so a
-// warp reads whole 32-byte sectors. Scores stay in shared memory (T <= ~10k
-// fp32), then one pass softmaxes them and a second pass over V sums the
-// output with each thread owning 16 B of columns. The joint prob scale needs
-// the whole row's softmax before any value term, so T is not split across
-// CTAs (a split-T design would have to carry max_t(exp(s-m)*vs) per split).
-// The cp.async path stages TILE_ROWS rows per stage; every thread copies
-// exactly the 16-byte pieces it later computes on, so the ring needs no
-// barrier, and shared reads and writes are consecutive 16-byte words (no
-// bank conflicts). Both paths compute every row and every partial sum in
-// the same order, so their outputs are equal bit for bit.
+// and does ~2 operations per byte. Head dim 64, so a head's row is 64 B
+// (int8) or 128 B (bf16) at a stride of H*64 elements; each thread loads
+// 16 B, neighbouring threads take the neighbouring 16 B of a row and then
+// the next rows, so a warp reads whole 32-byte sectors.
+//
+// K4 (the self-attention, T <= 448): one CTA of 128 threads per (head,
+// query, row) streams K with a few loads in flight per thread, keeps the
+// scores in shared memory, softmaxes them, then streams V, each thread
+// owning 16 B of columns.
+//
+// K5 (the int8 cross-attention, T = 1500): a CTA streaming 1500 keys alone
+// keeps too few bytes in flight (at batch 1 that is 20 CTAs on 132 SMs),
+// and the joint prob scale max_t(p*vs) needs the whole row's softmax before
+// the value sum. So a cluster of CLUSTER = 8 CTAs takes each (heads, query,
+// row): rank r holds keys [r*per, (r+1)*per), per = ceil(n / 8). At entry
+// it loads the query, then puts its whole slice of K, with the slice's ks
+// and vs scales, in flight (cp.async, about 12 KB a head at T = 1500 int8)
+// before it waits for anything. As each thread takes the score of its piece
+// of K, it asks for V's piece of the same row and columns into the same
+// slot, so V's loads run under the exchanges below and a CTA holds one
+// slice of rows, not two. Every thread copies exactly what it computes on,
+// so no barrier guards the buffers. The softmax is joint over the cluster,
+// through distributed shared memory: each rank writes its max, then its
+// sum of exp(s - m), then (int8) its max of p*vs into a slot of every
+// rank's shared memory with st.async, which counts the bytes on that
+// rank's mbarrier; a rank waits only for its own slots (no cluster-wide
+// barrier per exchange) and reads them in rank order, so all hold the same
+// m, l and pscale. The max is exact; l is the same sum as K4's in another
+// order (which can move a prob level at an exact .5 tie); pscale is exact
+// given l. Each rank then sums its slice's values (int32 in QUANT mode) and
+// writes the sum to rank 0, which adds the eight in rank order (exact in
+// int32) once the cluster barrier's release by every rank has reached it.
+// The result is the same on every launch.
+//
+// With int8 K/V and an even head count a cluster takes two adjacent heads
+// (G = 2; their rows and scales lie side by side). An H100 holds 124
+// clusters of 8 at once at up to 28 KB of shared memory a CTA, 92 at the
+// pair kernel's 35 KB (cudaOccupancyMaxActiveClusters;
+// tools/torch_k5_probe.py), so at batch 8 of large-v3 the one-head grid
+// (160 clusters) ran in two waves, each waiting for its loads and then its
+// chain of exchanges; with pairs it is 80 clusters, all resident, and at
+// batch 1 pairs measured no slower than single heads. PERF.md has the
+// times beside the bound (bytes).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int HEAD_DIM = 64;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE_ROWS = 64;                 // rows per cp.async stage
-constexpr int UNROLL = 4;                     // direct path: loads in flight
-constexpr size_t MAX_SMEM = 48 * 1024;
+constexpr int UNROLL = 4;                     // K4: loads in flight
+constexpr int CLUSTER = 8;                    // K5: CTAs per query
+constexpr size_t MAX_SMEM = 48 * 1024;        // K4: dynamic shared memory
+constexpr size_t MAX_SMEM_SPLIT = 200 * 1024; // K5: a slice's rows, sums and scores
 
 template <typename T> struct Layout {
   static constexpr int VALS = 16 / (int)sizeof(T);     // values per 16 B
   static constexpr int CHUNKS = HEAD_DIM / VALS;       // threads per row
   static constexpr int RPP = THREADS / CHUNKS;         // rows per pass
-  static_assert(TILE_ROWS % RPP == 0, "tile must hold whole passes");
 };
 
 __device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
@@ -108,13 +146,17 @@ template <> __device__ __forceinline__ float round_prob<float>(float p) { return
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ float block_max(float v, float* red) {
@@ -143,58 +185,103 @@ __device__ float block_sum(float v, float* red) {
 
 // Streams rows [0, n) of one head's K or V: fn(t, chunk) is called for the
 // 16-byte piece (row t, column chunk c) that this thread owns, rows in
-// ascending order, from global memory (direct) or through the cp.async ring.
-template <typename T, bool PIPE, typename Fn>
+// ascending order, straight from global memory.
+template <typename T, typename Fn>
 __device__ __forceinline__ void stream_rows(const T* base, long long row_stride,
-                                            int n, int4* ring, Fn&& fn) {
+                                            int n, Fn&& fn) {
   using L = Layout<T>;
   const int c = threadIdx.x % L::CHUNKS;
   const int r0 = threadIdx.x / L::CHUNKS;
-  if constexpr (!PIPE) {
-    for (int tb = 0; tb < n; tb += L::RPP * UNROLL) {
-      int4 ch[UNROLL];
+  for (int tb = 0; tb < n; tb += L::RPP * UNROLL) {
+    int4 ch[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int t = tb + u * L::RPP + r0;
-        ch[u] = t < n ? __ldg(reinterpret_cast<const int4*>(
-                            base + t * row_stride + c * L::VALS))
-                      : make_int4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) fn(tb + u * L::RPP + r0, ch[u]);
+    for (int u = 0; u < UNROLL; ++u) {
+      const int t = tb + u * L::RPP + r0;
+      ch[u] = t < n ? __ldg(reinterpret_cast<const int4*>(
+                          base + t * row_stride + c * L::VALS))
+                    : make_int4(0, 0, 0, 0);
     }
-  } else {
-    constexpr int PER_THREAD = TILE_ROWS / L::RPP;      // pieces per stage
-    const int n_tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
-    auto issue = [&](int tile, int stage) {
-      int4* dst = ring + stage * (TILE_ROWS * L::CHUNKS);
 #pragma unroll
-      for (int m = 0; m < PER_THREAD; ++m) {
-        const int row = m * L::RPP + r0;                // row within the tile
-        const int t = tile * TILE_ROWS + row;
-        if (t < n)
-          cp_async16(dst + row * L::CHUNKS + c, base + t * row_stride + c * L::VALS);
-      }
-      cp_async_commit();
-    };
-    issue(0, 0);
-    for (int j = 0; j < n_tiles; ++j) {
-      if (j + 1 < n_tiles) issue(j + 1, (j + 1) & 1);
-      else cp_async_commit();                           // keep the group count
-      cp_async_wait_prev();
-      const int4* src = ring + (j & 1) * (TILE_ROWS * L::CHUNKS);
-#pragma unroll
-      for (int m = 0; m < PER_THREAD; ++m) {
-        const int row = m * L::RPP + r0;
-        const int t = j * TILE_ROWS + row;
-        // Every lane calls fn (it may shuffle); rows past n carry zeros.
-        fn(t, t < n ? src[row * L::CHUNKS + c] : make_int4(0, 0, 0, 0));
-      }
-    }
+    for (int u = 0; u < UNROLL; ++u) fn(tb + u * L::RPP + r0, ch[u]);
   }
 }
 
-template <typename KV, typename QO, bool QUANT, bool PIPE>
+// Thread i < G*64's element of the queries of G adjacent heads of one
+// (row, query), as fp32.
+template <int G, typename QO>
+__device__ __forceinline__ float query_elem(const QO* qp) {
+  return threadIdx.x < G * HEAD_DIM ? load_f32(qp + threadIdx.x) : 0.f;
+}
+
+// The queries of G adjacent heads, from query_elem on each thread, into
+// shared memory: their fp32 values and, in QUANT mode, each head's int8
+// levels (four to a word) and scale, warp g taking head g:
+//   qscale = max(max|q_h|, 1e-10) / 127;  q8 = clip(rint(q_h / qscale)).
+// Every thread calls it.
+template <bool QUANT, int G>
+__device__ __forceinline__ void stage_query(float qv, float* qs, int* q8w, float* qscale_s) {
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  if (threadIdx.x < G * HEAD_DIM) qs[threadIdx.x] = qv;
+  __syncthreads();
+  if constexpr (QUANT) if (g < G) {
+    const float* qh = qs + g * HEAD_DIM;
+    float m = fmaxf(fabsf(qh[lane]), fabsf(qh[lane + 32]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float qscale = fmaxf(m, 1e-10f) / 127.0f;
+    if (lane == 0) qscale_s[g] = qscale;
+    if (lane < HEAD_DIM / 4) {
+      int w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float r = fminf(fmaxf(rintf(qh[4 * lane + j] / qscale), -127.f), 127.f);
+        w |= ((int)r & 0xff) << (8 * j);
+      }
+      q8w[g * (HEAD_DIM / 4) + lane] = w;
+    }
+  }
+  __syncthreads();
+}
+
+// The dot of one key row with the query, from the 16-byte piece `ch`
+// (column chunk c) that this thread holds, summed over the row's lanes:
+// the exact int32 dot of the levels in QUANT mode (as float: |dot| < 2^24),
+// else an fp32 dot. Every lane of the warp calls it.
+template <typename KV, bool QUANT>
+__device__ __forceinline__ float piece_dot(const int4& ch, int c, const float* qs,
+                                           const int* q8w) {
+  using L = Layout<KV>;
+  if constexpr (QUANT) {
+    int acc = 0;
+    acc = __dp4a(ch.x, q8w[4 * c + 0], acc);
+    acc = __dp4a(ch.y, q8w[4 * c + 1], acc);
+    acc = __dp4a(ch.z, q8w[4 * c + 2], acc);
+    acc = __dp4a(ch.w, q8w[4 * c + 3], acc);
+#pragma unroll
+    for (int off = L::CHUNKS / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return (float)acc;
+  } else {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < L::VALS; ++j) acc = fmaf(elem<KV>(ch, j), qs[c * L::VALS + j], acc);
+#pragma unroll
+    for (int off = L::CHUNKS / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return acc;
+  }
+}
+
+// The score of key t: ((dot * ks_t) * qscale) * sm_scale in QUANT mode.
+template <bool QUANT>
+__device__ __forceinline__ float score_of(float dot, const float* ks_t, float qscale,
+                                          float sm_scale) {
+  if constexpr (QUANT) return ((dot * *ks_t) * qscale) * sm_scale;
+  return dot * sm_scale;
+}
+
+// K4: one CTA of 128 threads per (head, query, row) streams the row's keys.
+template <typename KV, typename QO, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
                         const KV* __restrict__ v, const float* __restrict__ ks,
@@ -204,9 +291,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
                         float sm_scale) {
   using L = Layout<KV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  int4* ring = reinterpret_cast<int4*>(smem);                    // PIPE only
-  const size_t ring_bytes = PIPE ? 2 * TILE_ROWS * HEAD_DIM * sizeof(KV) : 0;
-  float* part = reinterpret_cast<float*>(smem + ring_bytes);     // [RPP][64]
+  float* part = reinterpret_cast<float*>(smem);                  // [RPP][64]
   float* sc = part + L::RPP * HEAD_DIM;                          // [T]
   __shared__ float qs[HEAD_DIM];
   __shared__ int q8w[HEAD_DIM / 4];
@@ -230,57 +315,17 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   const KV* vb = v + row0 * HD + h * HEAD_DIM;
   const float* ksb = QUANT ? ks + row0 * H + h : nullptr;
   const float* vsb = QUANT ? vs + row0 * H + h : nullptr;
-  const int lane = threadIdx.x & 31;
   const int c = threadIdx.x % L::CHUNKS;
-
-  // -- query (quantized per (row, query, head) in QUANT mode) --------------
-  if (threadIdx.x < HEAD_DIM) qs[threadIdx.x] = load_f32(q + qo_off + threadIdx.x);
-  __syncthreads();
-  if constexpr (QUANT) if (threadIdx.x < 32) {
-    float m = fmaxf(fabsf(qs[lane]), fabsf(qs[lane + 32]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float qscale = fmaxf(m, 1e-10f) / 127.0f;
-    if (lane == 0) qscale_s = qscale;
-    if (lane < HEAD_DIM / 4) {
-      int w = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float r = fminf(fmaxf(rintf(qs[4 * lane + j] / qscale), -127.f), 127.f);
-        w |= ((int)r & 0xff) << (8 * j);
-      }
-      q8w[lane] = w;
-    }
-  }
-  __syncthreads();
+  stage_query<QUANT, 1>(query_elem<1>(q + qo_off), qs, q8w, &qscale_s);
   const float qscale = QUANT ? qscale_s : 1.f;
 
   // -- scores: one 16-byte piece per thread, summed over the row's lanes ----
   float lmax = -FLT_MAX;
-  stream_rows<KV, PIPE>(kb, HD, n, ring, [&](int t, const int4& ch) {
-    float score;
-    if constexpr (QUANT) {
-      int acc = 0;
-      acc = __dp4a(ch.x, q8w[4 * c + 0], acc);
-      acc = __dp4a(ch.y, q8w[4 * c + 1], acc);
-      acc = __dp4a(ch.z, q8w[4 * c + 2], acc);
-      acc = __dp4a(ch.w, q8w[4 * c + 3], acc);
-#pragma unroll
-      for (int off = L::CHUNKS / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      score = t < n ? (float)acc * ksb[(long long)t * H] : 0.f;
-      score = score * qscale;
-      score = score * sm_scale;
-    } else {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < L::VALS; ++j) acc = fmaf(elem<KV>(ch, j), qs[c * L::VALS + j], acc);
-#pragma unroll
-      for (int off = L::CHUNKS / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      score = acc * sm_scale;
-    }
+  stream_rows<KV>(kb, HD, n, [&](int t, const int4& ch) {
+    const float dot = piece_dot<KV, QUANT>(ch, c, qs, q8w);
     if (c == 0 && t < n) {
+      const float score = score_of<QUANT>(dot, QUANT ? ksb + (long long)t * H : nullptr,
+                                           qscale, sm_scale);
       sc[t] = score;
       lmax = fmaxf(lmax, score);
     }
@@ -319,7 +364,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
     int acc[L::VALS];
 #pragma unroll
     for (int j = 0; j < L::VALS; ++j) acc[j] = 0;
-    stream_rows<KV, PIPE>(vb, HD, n, ring, [&](int t, const int4& ch) {
+    stream_rows<KV>(vb, HD, n, [&](int t, const int4& ch) {
       if (t < n) {
         const int p8 = (int)sc[t];
 #pragma unroll
@@ -333,7 +378,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
     float acc[L::VALS];
 #pragma unroll
     for (int j = 0; j < L::VALS; ++j) acc[j] = 0.f;
-    stream_rows<KV, PIPE>(vb, HD, n, ring, [&](int t, const int4& ch) {
+    stream_rows<KV>(vb, HD, n, [&](int t, const int4& ch) {
       if (t < n) {
         const float p = sc[t];
 #pragma unroll
@@ -359,38 +404,407 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-template <typename KV, typename QO, bool QUANT, bool PIPE>
+// The one cluster barrier, split: every rank arrives once its mbarriers are
+// initialised, and waits before its first write to another rank's shared
+// memory, so that no write finds a barrier not yet initialised.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` in rank `rank`'s shared memory.
+__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(oh_tma::smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// Writes 4 bytes to another rank's shared memory and counts them on that
+// rank's mbarrier: one-sided, the writer waits for nothing.
+__device__ __forceinline__ void st_async(uint32_t remote, uint32_t bits, uint32_t remote_bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(remote), "r"(bits), "r"(remote_bar) : "memory");
+}
+
+// v[g] for a g known only at run time, without indexing a register array.
+template <int G>
+__device__ __forceinline__ float pick(const float (&v)[G], int g) {
+  float x = v[0];
+#pragma unroll
+  for (int i = 1; i < G; ++i)
+    if (g == i) x = v[i];
+  return x;
+}
+
+// G values: x at g, `identity` elsewhere.
+template <int G>
+__device__ __forceinline__ void at_only(float (&v)[G], int g, float x, float identity) {
+#pragma unroll
+  for (int i = 0; i < G; ++i) v[i] = i == g ? x : identity;
+}
+
+// The CTA's reduction by `op` of each of G values, in the order of
+// block_max and block_sum; every thread gets the G results. `red` holds
+// WARPS * G floats.
+template <int G, typename Op>
+__device__ __forceinline__ void block_reduce(float (&v)[G], float* red, Op op) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[g] = op(v[g], __shfl_xor_sync(0xffffffffu, v[g], off));
+    if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * G + g] = v[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    v[g] = red[g];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v[g] = op(v[g], red[w * G + g]);
+  }
+  __syncthreads();
+}
+
+// Every rank's G values x (the same on all of this CTA's threads) land in
+// slot[rank * G + g] of every rank's copy of `slot`, counted on that rank's
+// `bar`: thread g * CLUSTER + r writes value g to rank r. A rank has all
+// CLUSTER * G values once its `bar` completes its phase.
+template <int G>
+__device__ __forceinline__ void push_all(float* slot, uint64_t* bar, int rank, const float (&x)[G]) {
+  if (threadIdx.x < CLUSTER * G) {
+    const int dst = threadIdx.x % CLUSTER, g = threadIdx.x / CLUSTER;
+    st_async(at_rank(slot + rank * G + g, dst), __float_as_uint(pick(x, g)), at_rank(bar, dst));
+  }
+}
+
+// Each head's values from the ranks, in rank order, so that every rank gets
+// the same numbers.
+template <int G, typename Op>
+__device__ __forceinline__ void rank_order(const float* slot, float init, Op op, float (&out)[G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float x = init;
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) x = op(x, slot[r * G + g]);
+    out[g] = x;
+  }
+}
+
+struct MaxOp {
+  __device__ float operator()(float a, float x) const { return fmaxf(a, x); }
+};
+struct AddOp {
+  __device__ float operator()(float a, float x) const { return a + x; }
+};
+
+// K5's dynamic shared memory, in bytes, for slices of at most per_cap rows
+// of G heads: the rows (K's, then V's in the same slots), the value sums by
+// warp and, on rank 0, every rank's sum, then the scores, ks and vs.
+struct SplitSmem {
+  int sums, sc, ks, vs, total;
+  __host__ __device__ SplitSmem(int per_cap, int row_bytes, int G)
+      : sums(per_cap * row_bytes * G),
+        sc(sums + (WARPS + CLUSTER) * G * HEAD_DIM * 4),
+        ks(sc + per_cap * G * 4),
+        vs(ks + per_cap * G * 4),
+        total(vs + per_cap * G * 4) {}
+};
+
+// K5: a cluster of CLUSTER CTAs per (G adjacent heads, query, row); rank r
+// takes keys [r*per, (r+1)*per) of the row's n (per = ceil(n / CLUSTER); a
+// slice may be empty).
+template <typename KV, typename QO, bool QUANT, int G>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
+decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
+                              const KV* __restrict__ v, const float* __restrict__ ks,
+                              const float* __restrict__ vs, const int* __restrict__ lengths,
+                              int len_default, int causal, QO* __restrict__ out,
+                              float* __restrict__ probs, int S, int H, int T,
+                              float sm_scale) {
+  using L = Layout<KV>;
+  using Acc = typename std::conditional<QUANT, int, float>::type;   // value sums
+  constexpr int RC = G * L::CHUNKS;     // threads per row of the CTA's heads
+  constexpr int RPP = THREADS / RC;     // rows per pass
+  constexpr int GD = G * HEAD_DIM;      // the heads' columns
+  static_assert(RC <= 32 && GD <= THREADS, "a row's pieces within a warp");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int per_cap = (T + CLUSTER - 1) / CLUSTER;
+  const SplitSmem lay(per_cap, HEAD_DIM * (int)sizeof(KV), G);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* rows = reinterpret_cast<int4*>(smem);                  // [per_cap][RC]
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);          // [per_cap][G]
+  float* kss = reinterpret_cast<float*>(smem + lay.ks);         // [per_cap][G]
+  float* vss = reinterpret_cast<float*>(smem + lay.vs);         // [per_cap][G]
+  Acc (*part)[GD] = reinterpret_cast<Acc (*)[GD]>(smem + lay.sums);   // [WARPS]
+  Acc (*partials)[GD] = part + WARPS;                           // [CLUSTER], rank 0's
+  __shared__ float qs[GD];
+  __shared__ int q8w[GD / 4];
+  __shared__ float red[WARPS * G];
+  __shared__ float qscale_s[G];
+  // Every rank's max, sum and max(p*vs) per head, written here by each
+  // rank, and the mbarriers that count their arrival.
+  __shared__ float xmax[CLUSTER * G], xsum[CLUSTER * G], xpv[CLUSTER * G];
+  __shared__ __align__(8) uint64_t got_max, got_sum, got_pv;
+
+  const int h0 = blockIdx.y * G, s = blockIdx.z % S, b = blockIdx.z / S;
+  const int HD = H * HEAD_DIM;
+  const long long qo_off = ((long long)b * S + s) * HD + h0 * HEAD_DIM;
+  int n = (lengths ? lengths[b] : len_default) + (causal ? s : 0);
+  n = n < T ? n : T;
+  // Head h0 + g's probs at pb + g * T.
+  float* pb = probs ? probs + (((long long)b * S + s) * H + h0) * T : nullptr;
+  if (n <= 0) {                     // the same for the whole cluster
+    if (rank == 0 && threadIdx.x < GD) store_f32(out + qo_off + threadIdx.x, 0.f);
+    if (rank == 0 && pb)
+      for (int t = threadIdx.x; t < G * T; t += THREADS) pb[t] = 0.f;
+    return;
+  }
+  const int per = (n + CLUSTER - 1) / CLUSTER;
+  const int t0 = min(rank * per, n);
+  const int cnt = min(per, n - t0);
+  const long long row0 = (long long)b * T + t0;
+  const KV* kb = k + row0 * HD + h0 * HEAD_DIM;
+  const KV* vb = v + row0 * HD + h0 * HEAD_DIM;
+  const float* ksb = QUANT ? ks + row0 * H + h0 : nullptr;
+  const float* vsb = QUANT ? vs + row0 * H + h0 : nullptr;
+  const int c = threadIdx.x % RC;   // this thread's 16 B of a row: in head
+  const int g = c / L::CHUNKS;      // h0 + g, its column chunk hc
+  const int hc = c % L::CHUNKS;
+  const int r0 = threadIdx.x / RC;
+  const int gs = threadIdx.x % G;   // the head of this thread's softmax entries
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // -- the query's load first, ahead of the slice's; then the slice's K and
+  //    scales in flight at once. Each thread copies exactly what it computes
+  //    on (a 16-byte piece of a row, a row's ks where it takes that row's
+  //    score, the vs of the probs it takes), so no barrier guards the
+  //    buffers ---------------------------------------------------------------
+  const float qv = query_elem<G>(q + qo_off);
+  for (int r = r0; r < cnt; r += RPP) {
+    cp_async16(rows + r * RC + c, kb + (long long)r * HD + c * L::VALS);
+    if (QUANT && hc == 0) cp_async4(kss + r * G + g, ksb + (long long)r * H + g);
+  }
+  if constexpr (QUANT)
+    for (int i = threadIdx.x; i < cnt * G; i += THREADS)
+      cp_async4(vss + i, vsb + (long long)(i / G) * H + i % G);
+  cp_async_commit();
+  if (threadIdx.x == 0) {
+    oh_tma::mbar_init(&got_max, 1);
+    oh_tma::mbar_init(&got_sum, 1);
+    oh_tma::mbar_init(&got_pv, 1);
+    oh_tma::mbar_init_fence();
+    oh_tma::mbar_expect_tx(&got_max, CLUSTER * G * 4);
+    oh_tma::mbar_expect_tx(&got_sum, CLUSTER * G * 4);
+    oh_tma::mbar_expect_tx(&got_pv, CLUSTER * G * 4);
+  }
+  cluster_arrive_relaxed();         // this rank's mbarriers are initialised
+  // (Its __syncthreads also make them visible to this CTA's threads.)
+  stage_query<QUANT, G>(qv, qs, q8w, qscale_s);
+  const float qscale = QUANT ? qscale_s[g] : 1.f;
+
+  // -- scores of the slice, and the cluster's max. As a thread takes the
+  //    score of a piece of K, it asks for V's piece of the same row and
+  //    columns into that slot: V's loads run under the exchanges, and the
+  //    CTA holds one slice of rows, not two ---------------------------------
+  cp_async_wait_all();              // this thread's K pieces and scales have landed
+  float lmax = -FLT_MAX;
+  for (int rb = 0; rb < cnt; rb += RPP) {
+    const int r = rb + r0;
+    const float dot = piece_dot<KV, QUANT>(
+        r < cnt ? rows[r * RC + c] : make_int4(0, 0, 0, 0), hc, qs + g * HEAD_DIM,
+        q8w + g * (HEAD_DIM / 4));
+    if (r < cnt)                    // (the slot's read returned before the dot's shuffles)
+      cp_async16(rows + r * RC + c, vb + (long long)r * HD + c * L::VALS);
+    if (hc == 0 && r < cnt) {
+      const float score = score_of<QUANT>(dot, kss + r * G + g, qscale, sm_scale);
+      sc[r * G + g] = score;
+      lmax = fmaxf(lmax, score);
+    }
+  }
+  cp_async_commit();
+  __syncthreads();
+  float m[G];
+  at_only(m, g, lmax, -FLT_MAX);
+  block_reduce(m, red, MaxOp());
+  cluster_wait();                   // every rank's mbarriers are initialised
+  push_all(xmax, &got_max, rank, m);
+  oh_tma::mbar_wait_cluster(&got_max, 0);
+  rank_order(xmax, -FLT_MAX, MaxOp(), m);
+  const float m_s = pick(m, gs);
+
+  // -- softmax: l summed over the ranks in rank order (deterministic); entry
+  //    i of sc is row i / G, head i % G = gs ----------------------------------
+  float lsum = 0.f;
+  for (int i = threadIdx.x; i < cnt * G; i += THREADS) {
+    const float e = expf(sc[i] - m_s);
+    sc[i] = e;
+    lsum += e;
+  }
+  float l[G];
+  at_only(l, gs, lsum, 0.f);
+  block_reduce(l, red, AddOp());
+  push_all(xsum, &got_sum, rank, l);
+  oh_tma::mbar_wait_cluster(&got_sum, 0);
+  rank_order(xsum, 0.f, AddOp(), l);
+  const float l_s = pick(l, gs);
+  float pscale[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) pscale[i] = 1.f;
+  if constexpr (QUANT) {
+    float pmax = 0.f;
+    for (int i = threadIdx.x; i < cnt * G; i += THREADS) {
+      const float pv = (sc[i] / l_s) * vss[i];
+      sc[i] = pv;
+      pmax = fmaxf(pmax, pv);
+    }
+    at_only(pscale, gs, pmax, 0.f);
+    block_reduce(pscale, red, MaxOp());
+    push_all(xpv, &got_pv, rank, pscale);
+    oh_tma::mbar_wait_cluster(&got_pv, 0);
+    rank_order(xpv, 0.f, MaxOp(), pscale);
+#pragma unroll
+    for (int i = 0; i < G; ++i) pscale[i] = fmaxf(pscale[i], 1e-20f) / 127.0f;
+    const float ps = pick(pscale, gs);
+    for (int i = threadIdx.x; i < cnt * G; i += THREADS)
+      sc[i] = fminf(fmaxf(rintf(sc[i] / ps), -127.f), 127.f);
+  } else {
+    for (int i = threadIdx.x; i < cnt * G; i += THREADS) sc[i] = round_prob<KV>(sc[i] / l_s);
+  }
+  __syncthreads();
+  if (pb) {                         // the value sum's probs, for checks
+    for (int i = threadIdx.x; i < cnt * G; i += THREADS)
+      pb[(long long)(i % G) * T + t0 + i / G] = sc[i];
+    if (rank == CLUSTER - 1)
+      for (int i = threadIdx.x; i < (T - n) * G; i += THREADS)
+        pb[(long long)(i % G) * T + n + i / G] = 0.f;
+  }
+
+  // -- values of the slice: each thread sums its 16 B of columns over its
+  //    rows (int32 in QUANT mode, exact), then over the warp's rows and the
+  //    CTA's warps, in a fixed order --------------------------------------
+  cp_async_wait_all();              // this thread's V pieces have landed
+  Acc acc[L::VALS];
+#pragma unroll
+  for (int j = 0; j < L::VALS; ++j) acc[j] = 0;
+  for (int r = r0; r < cnt; r += RPP) {
+    const int4 ch = rows[r * RC + c];
+    if constexpr (QUANT) {
+      const int p8 = (int)sc[r * G + g];
+#pragma unroll
+      for (int j = 0; j < L::VALS; ++j) acc[j] += p8 * int8_at(ch, j);
+    } else {
+      const float p = sc[r * G + g];
+#pragma unroll
+      for (int j = 0; j < L::VALS; ++j) acc[j] = fmaf(p, elem<KV>(ch, j), acc[j]);
+    }
+  }
+#pragma unroll
+  for (int off = RC; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < L::VALS; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  if (lane < RC)                    // lane c holds chunk c's warp sum
+#pragma unroll
+    for (int j = 0; j < L::VALS; ++j) part[warp][c * L::VALS + j] = acc[j];
+  __syncthreads();
+  if (threadIdx.x < GD) {           // this rank's sum, written to rank 0
+    Acc total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += part[w][threadIdx.x];
+    *cluster.map_shared_rank(&partials[rank][threadIdx.x], 0) = total;
+  }
+  // The cluster barrier's second phase: each rank's arrival releases its
+  // sum to rank 0, which waits for all of them. The other ranks exit
+  // without waiting: each has received every value sent to it, and no rank
+  // touches their shared memory after this.
+  cluster_arrive();
+  if (rank != 0) return;
+  cluster_wait();
+  if (threadIdx.x < GD) {
+    Acc total = 0;                  // int32 exact; fp32 in rank order
+#pragma unroll
+    for (int r = 0; r < CLUSTER; ++r) total += partials[r][threadIdx.x];
+    store_f32(out + qo_off + threadIdx.x,
+              QUANT ? (float)total * pick(pscale, threadIdx.x / HEAD_DIM) : (float)total);
+  }
+}
+
+// Dynamic shared memory of a launch: K4 keeps all T scores and its value
+// partials; K5 a slice's rows of G heads, their value sums, scores and
+// scales.
+template <typename KV>
+size_t smem_direct(int T) {
+  using L = Layout<KV>;
+  return L::RPP * HEAD_DIM * sizeof(float) + (size_t)T * sizeof(float);
+}
+template <typename KV>
+size_t smem_split(int T, int G) {
+  return (size_t)SplitSmem((T + CLUSTER - 1) / CLUSTER, HEAD_DIM * (int)sizeof(KV), G).total;
+}
+
+template <typename KV, typename QO, bool QUANT, int G>
+int launch_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                 const void* lengths, int len_default, int causal, void* out, void* probs,
+                 int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
+  const auto kernel = decode_attention_split_kernel<KV, QO, QUANT, G>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM_SPLIT);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(CLUSTER, H / G, S * B);
+  kernel<<<grid, THREADS, smem_split<KV>(T, G), st>>>(
+      (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
+      (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename KV, typename QO, bool QUANT, bool SPLIT>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, int len_default, int causal,
            void* out, void* probs, int B, int S, int H, int T, float sm_scale,
            cudaStream_t st) {
-  using L = Layout<KV>;
-  const size_t smem = (PIPE ? 2 * TILE_ROWS * HEAD_DIM * sizeof(KV) : 0) +
-                      L::RPP * HEAD_DIM * sizeof(float) + (size_t)T * sizeof(float);
-  if (smem > MAX_SMEM || B <= 0 || S <= 0 || H <= 0 || T <= 0 || S > 65535 || B > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || T <= 0 ||
+      (SPLIT ? H > 65535 || (long long)S * B > 65535 : S > 65535 || B > 65535))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(H, S, B);
-  decode_attention_kernel<KV, QO, QUANT, PIPE><<<grid, THREADS, smem, st>>>(
-      (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
-      (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T,
-      sm_scale);
-  return (int)cudaGetLastError();
+  if constexpr (SPLIT) {
+    if (smem_split<KV>(T, 1) > MAX_SMEM_SPLIT) return (int)cudaErrorInvalidValue;
+    // int8 K/V: two adjacent heads to a cluster when H is even (see the
+    // header), one head otherwise.
+    if constexpr (sizeof(KV) == 1)
+      if (H % 2 == 0 && smem_split<KV>(T, 2) <= MAX_SMEM_SPLIT)
+        return launch_split<KV, QO, QUANT, 2>(q, k, v, ks, vs, lengths, len_default, causal,
+                                              out, probs, B, S, H, T, sm_scale, st);
+    return launch_split<KV, QO, QUANT, 1>(q, k, v, ks, vs, lengths, len_default, causal, out,
+                                          probs, B, S, H, T, sm_scale, st);
+  } else {
+    const size_t smem = smem_direct<KV>(T);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    dim3 grid(H, S, B);
+    decode_attention_kernel<KV, QO, QUANT><<<grid, THREADS, smem, st>>>(
+        (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
+        (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T,
+        sm_scale);
+    return (int)cudaGetLastError();
+  }
 }
 
-template <typename QO, bool PIPE>
+template <typename QO, bool SPLIT>
 int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
                 const void* ks, const void* vs, const void* lengths,
                 int len_default, int causal, void* out, void* probs, int B,
                 int S, int H, int T, float sm_scale, cudaStream_t st) {
   switch (kv_kind) {
-    case 0: return launch<int8_t, QO, true, PIPE>(q, k, v, ks, vs, lengths, len_default,
-                                                  causal, out, probs, B, S, H, T, sm_scale, st);
-    case 1: return launch<int8_t, QO, false, PIPE>(q, k, v, ks, vs, lengths, len_default,
+    case 0: return launch<int8_t, QO, true, SPLIT>(q, k, v, ks, vs, lengths, len_default,
                                                    causal, out, probs, B, S, H, T, sm_scale, st);
-    case 2: return launch<__nv_bfloat16, QO, false, PIPE>(q, k, v, ks, vs, lengths, len_default,
-                                                          causal, out, probs, B, S, H, T, sm_scale, st);
-    case 3: return launch<float, QO, false, PIPE>(q, k, v, ks, vs, lengths, len_default,
-                                                  causal, out, probs, B, S, H, T, sm_scale, st);
+    case 1: return launch<int8_t, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
+                                                    causal, out, probs, B, S, H, T, sm_scale, st);
+    case 2: return launch<__nv_bfloat16, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
+                                                           causal, out, probs, B, S, H, T, sm_scale, st);
+    case 3: return launch<float, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
+                                                   causal, out, probs, B, S, H, T, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -404,7 +818,7 @@ int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
 // Query s of row b sees keys t < lengths[b] + (causal ? s : 0), at most T.
 // probs: null, or fp32 [B, S, H, T] that takes the probs of the value sum
 // (int8 levels in the int8 mode; 0 past each query's keys), for checks.
-// pipelined: 0 = direct loads (K4), 1 = cp.async ring (K5).
+// pipelined: 0 = direct loads (K4), 1 = the cluster split over T (K5).
 extern "C" int oh_decode_attention(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* lengths, int len_default,

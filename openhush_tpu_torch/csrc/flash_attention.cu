@@ -1,4 +1,9 @@
-// Non-causal multi-head attention for the Whisper encoder, flash style.
+// Non-causal multi-head attention for the Whisper encoder, flash style:
+// kernel K2. This file holds its fp32 path, on the CUDA cores, and the
+// entry point, which sends bf16 inputs to the tensor-core kernel in
+// flash_attention_tc.cu. The fp32 path stays on the CUDA cores on purpose:
+// the tensor cores take fp32 only as TF32, and whether TF32 is acceptable
+// against the reference's fp32 training is an open question.
 //
 // Replaces the TPU kernel that openhush_tpu/models/whisper/model.py:
 // _attend_full_flash calls (jax.experimental.pallas.ops.tpu.flash_attention,
@@ -10,9 +15,9 @@
 // Bound on an H100: operations. At large-v3 (B=1, 20 heads, T=1500) one call
 // is 4*T*T*Dh*H = 11.5 GFLOP against 15 MB of q, k, v and output, so the
 // [T, T] scores must never reach device memory and the rate to beat is the
-// bf16 tensor-core peak. This first version keeps the scores on chip but
-// computes on the fp32 CUDA cores, which caps it far below that peak; wgmma
-// and TMA pipelining are later work. Design: one CTA per (batch, head,
+// bf16 tensor-core peak (the bf16 kernel's aim). This fp32 kernel keeps the
+// scores on chip and computes on the fp32 CUDA cores (67 TFLOP/s, a 0.17 ms
+// floor at that size). Design: one CTA per (batch, head,
 // 64-query tile); q for the tile and each 64-key tile of k and v are staged
 // in shared memory as fp32; the loop over key tiles keeps an online softmax
 // (running max and sum per row) in registers. Each of the 256 threads owns a
@@ -163,8 +168,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
+int flash_attention_bf16_tc(const void* q, const void* k, const void* v, void* o,
+                            float* lse, int B, int H, int Tq, int Tk,
+                            const long long* s, float scale, cudaStream_t stream);
+
 // q [B,H,Tq,64], k and v [B,H,Tk,64], o [B,H,Tq,64], all of one dtype, fp32
-// (dtype 0) or bf16 (dtype 1), addressed through `strides` in elements:
+// (dtype 0: the CUDA-core kernel here) or bf16 (dtype 1: the tensor-core
+// kernel of flash_attention_tc.cu), addressed through `strides` in elements:
 // (b, h, t) for q, k, v, o in that order; the last dim is contiguous, and
 // every row starts on a 16-byte boundary. `lse` is null, or a contiguous
 // fp32 [B, H, Tq] buffer for the per-row log-sum-exp (residual mode).
@@ -177,7 +187,7 @@ extern "C" int oh_flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float>(q, k, v, o, l, B, H, Tq, Tk, strides, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, l, B, H, Tq, Tk, strides, scale,
-                                 st);
+    return flash_attention_bf16_tc(q, k, v, o, l, B, H, Tq, Tk, strides, scale,
+                                   st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,11 +3,17 @@
 
 Counterparts of openhush_tpu/ops/decode_attention.py:decode_cross_attend
 (K4, direct loads) and openhush_tpu/ops/decode_attention_dma.py:
-decode_cross_attend_dma (K5, its double-buffered load path). One CUDA
-kernel serves both: `attend_decode` launches its direct load path and
-`attend_decode_pipelined` its cp.async ring; the two give equal outputs bit
-for bit. The decode step (models/whisper/model.py:_decode_flat_ro) runs the
-self-attention on the first and the cross-attention on the second.
+decode_cross_attend_dma (K5, its pipelined load path). Both compute the
+same function: `attend_decode` launches K4, one CTA per query streaming
+the keys; `attend_decode_pipelined` launches K5, a cluster of 8 CTAs per
+query (and per pair of heads, for int8 K/V and an even head count), each
+holding a slice of the keys, with the softmax combined across the
+cluster. The two are not equal bit for bit (K5 sums the softmax's
+denominator in another order, which can move an int8 prob level at an
+exact .5 tie), but each is within the plain version's tolerance, and K5
+gives the same bits on every launch. The decode step
+(models/whisper/model.py:_decode_flat_ro) runs the self-attention on K4
+and the cross-attention on K5.
 
 Two functions, each with its plain PyTorch version here:
 - `attend_decode_plain` is the production arithmetic of the JAX decode step
@@ -26,7 +32,9 @@ import torch
 from openhush_tpu_torch.ops import _build
 
 HEAD_DIM = 64            # the only head size the kernel takes (every Whisper)
-MAX_SMEM = 48 * 1024     # the kernel's dynamic shared memory, at most
+MAX_SMEM = 48 * 1024     # K4's dynamic shared memory, at most
+MAX_SMEM_SPLIT = 200 * 1024   # K5's, at most
+CLUSTER = 8              # K5's CTAs per query, each a slice of the keys
 NEG = torch.finfo(torch.float32).min    # mask fill, as jnp.finfo(f32).min
 _QO = {torch.float32: 0, torch.bfloat16: 1}
 _KV_FLOAT = {torch.bfloat16: 2, torch.float32: 3}
@@ -149,9 +157,14 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
             or v.dtype != k.dtype:
         raise ValueError(f"{name}: q {q3.dtype} {tuple(q3.shape)}, k/v "
                          f"{k.dtype} {tuple(k.shape)}/{tuple(v.shape)}")
-    vals = 16 // k.element_size()
-    ring = 2 * 64 * HEAD_DIM * k.element_size() if pipelined else 0
-    if ring + (128 // (HEAD_DIM // vals)) * HEAD_DIM * 4 + T * 4 > MAX_SMEM:
+    if pipelined:      # a slice's rows (K's, then V's), the value sums'
+        per = -(-T // CLUSTER)        # 3 KB, the scores, ks and vs
+        rows = per * HEAD_DIM * k.element_size()
+        fits = rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
+    else:              # the value partials and every key's score
+        part = (128 // (HEAD_DIM // (16 // k.element_size()))) * HEAD_DIM * 4
+        fits = part + T * 4 <= MAX_SMEM
+    if not fits:
         raise ValueError(f"{name}: T={T} keys do not fit the kernel's "
                          f"shared memory")
     tensors = [q3, k, v]
@@ -237,8 +250,9 @@ def attend_decode_pipelined(q3: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths, n_head: int, *,
                             ks=None, vs=None, causal: bool = False,
                             return_probs: bool = False):
-    """`attend_decode` on the kernel's cp.async load path (K5): the same
-    outputs bit for bit."""
+    """Same function as `attend_decode`, on K5: a cluster of 8 CTAs per
+    query, each loading a slice of the keys at once. Within the plain
+    version's tolerance, and the same bits on every launch."""
     _no_gradient("attend_decode_pipelined", q3, k, v, ks, vs)
     if q3.device.type == "cpu":
         return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,

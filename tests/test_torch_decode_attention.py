@@ -188,6 +188,123 @@ def test_int_lengths_and_none_match_tensor_lengths():
     assert p[:, 1, :, 6:].abs().sum() == 0
 
 
+FLT_MAX = torch.finfo(torch.float32).max
+
+
+def _k5_model(q3, k, v, lengths, C, ks=None, vs=None):
+    """K5's arithmetic (csrc/decode_attention.cu, the cluster split) in
+    PyTorch: rank r of a cluster of C takes keys [r*per, (r+1)*per) of the
+    row's n visible keys, per = ceil(n / C), possibly none; the ranks'
+    maxima, sums of exp(s - m) and (int8) maxima of p*vs combine in rank
+    order; each slice's value sum is int32 (int8) or fp32, and the slices'
+    sums add in rank order. Returns (out, probs [B, S, H, T] as
+    attend_decode_plain's, m, l, pscale)."""
+    B, S, HD = q3.shape
+    T = k.shape[1]
+    k4, v4 = k.view(B, T, H, D), v.view(B, T, H, D)
+    if k.dtype == torch.int8:
+        q8, qscale = da._quantize_query(q3, H)
+        scores = (torch.einsum("bthd,bshd->btsh", k4.float(), q8)
+                  * ks[:, :, None, :] * qscale[:, None] * D ** -0.5)
+    else:
+        scores = torch.einsum("bthd,bshd->btsh", k4.float(),
+                              q3.float().view(B, S, H, D)) * D ** -0.5
+    n = lengths.clamp(max=T).long()
+    per = (n + C - 1) // C
+    t = torch.arange(T)[None, :]
+    # [B, T, 1, 1] masks: rank r's slice of each row, and the visible keys.
+    ranks = [((t >= r * per[:, None]) & (t < torch.minimum((r + 1) * per, n)
+                                         [:, None]))[:, :, None, None]
+             for r in range(C)]
+    visible = (t < n[:, None])[:, :, None, None]
+    m = torch.full(scores[:, 0].shape, -FLT_MAX)
+    for sl in ranks:
+        m = torch.maximum(m, torch.where(sl, scores, -FLT_MAX).amax(dim=1))
+    e = torch.where(visible, torch.exp(scores - m[:, None]), 0.0)
+    l = torch.zeros_like(m)
+    for sl in ranks:
+        l = l + torch.where(sl, e, 0.0).sum(dim=1)
+    if k.dtype == torch.int8:
+        pv = (e / l[:, None]) * vs[:, :, None, :]
+        pmax = torch.zeros_like(m)
+        for sl in ranks:
+            pmax = torch.maximum(pmax, torch.where(sl, pv, 0.0).amax(dim=1))
+        pscale = torch.clamp(pmax, min=1e-20) / 127.0
+        p = torch.clamp(torch.round(pv / pscale[:, None]), -127, 127)
+        total = sum(da._exact_pv(torch.where(sl, p, 0.0), v4) for sl in ranks)
+        out = total.float() * pscale[..., None]
+    else:
+        pscale = None
+        p = (e / l[:, None]).to(v.dtype).float()
+        out = torch.zeros(B, S, H, D)
+        for sl in ranks:
+            out = out + torch.einsum("btsh,bthd->bshd",
+                                     torch.where(sl, p, 0.0), v4.float())
+    return (out.reshape(B, S, HD).to(q3.dtype), p.permute(0, 2, 3, 1), m, l,
+            pscale, scores, visible)
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("T", [7, 1500])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_k5_cluster_split_model(kind, S, T, C):
+    """K5's split of each row's keys over a cluster of C ranks, modelled in
+    PyTorch, against `attend_decode_plain` and the JAX decode step's
+    `_attend_decode_flat` (S=1) / `_attend_decode_flat_multi` (S=3), with
+    per-row lengths that include n = 1 and n < C. Tolerances: m equal bit
+    for bit (a max is exact in any order); pscale equal bit for bit to the
+    whole row's max_t(p*vs) / 127 given the model's l (the split of that
+    max is exact), and within 1e-5 relative of the plain version's (l
+    summed in another order over up to 1500 terms, and torch.softmax
+    multiplies by 1/l: 1.2e-6 seen here); int8 prob levels within 1 on <= 1e-3 of visible keys
+    (a level moves only at an exact .5 tie); outputs within 1e-2."""
+    B = 3
+    q, k, v, ks, vs = _inputs(B, S, T, "int8" if kind == "int8" else "fp32",
+                              seed=10 * S + T % 10)
+    if kind == "bf16":
+        j = lambda a: jnp.asarray(a, jnp.bfloat16)
+        t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    else:
+        j, t = _j, _t
+    lens = np.array([T, (T + 1) // 2 if T > 7 else 3, 1], np.int32)
+    lengths = torch.from_numpy(lens)
+    args = (t(q), t(k), t(v), lengths, H)
+    out, p, m, l, pscale, scores, visible = _k5_model(
+        *args[:4], C, ks=_t(ks), vs=_t(vs))
+    plain, p_plain = da.attend_decode_plain(*args, ks=_t(ks), vs=_t(vs),
+                                            return_probs=True)
+
+    assert torch.equal(m, torch.where(visible, scores, -FLT_MAX).amax(dim=1))
+    if kind == "int8":
+        pv = torch.where(visible, (torch.exp(scores - m[:, None])
+                                   / l[:, None]) * _t(vs)[:, :, None, :], 0.0)
+        assert torch.equal(pscale, torch.clamp(pv.amax(dim=1), min=1e-20)
+                           / 127.0)
+        probs = torch.softmax(torch.where(visible, scores, da.NEG), dim=1)
+        ref_pscale = torch.clamp((probs * _t(vs)[:, :, None, :]).amax(dim=1),
+                                 min=1e-20) / 127.0
+        np.testing.assert_allclose(pscale.numpy(), ref_pscale.numpy(),
+                                   rtol=1e-5)
+        dp = (p - p_plain).abs()
+        assert dp.max() <= 1
+        assert dp.ne(0).sum().item() <= 1e-3 * H * S * int(lengths.sum())
+
+    mask = np.arange(T)[None, :] < lens[:, None]
+    if S == 1:
+        ref = jax_model._attend_decode_flat(
+            j(q[:, 0]), j(k), j(v), jnp.asarray(mask), H, ks=_j(ks),
+            vs=_j(vs))[:, None]
+    else:
+        ref = jax_model._attend_decode_flat_multi(
+            j(q), j(k), j(v), jnp.asarray(np.broadcast_to(
+                mask[:, None, None, :], (B, 1, S, T))), H, ks=_j(ks),
+            vs=_j(vs))
+    assert out.dtype == plain.dtype
+    for other in (plain.float().numpy(), np.asarray(ref, np.float32)):
+        np.testing.assert_allclose(out.float().numpy(), other, atol=1e-2)
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """On a device other than the CPU the wrappers launch the kernel or
     raise; the 'meta' device stands in for one here."""
