@@ -4,8 +4,9 @@
 
 Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-     the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a),
-     and the count of wgmma instructions in K2's bf16 kernel;
+     the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a;
+     ptxas's registers and spills), and the count of wgmma instructions in
+     K2's bf16 kernel and in K6;
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
      (large-v3, one 30 s window; for the decode attention K4/K5, the
@@ -13,12 +14,15 @@ Phases, each printing its own lines and its seconds:
      least time the card could take (bound) and, where one PyTorch call
      computes the same function, that call's time; K2 in bf16 also at
      batch 2, at a T that is not a multiple of its tiles and on contiguous
-     heads; K5 is also held to itself bit for bit over two launches, checked
-     at an odd head count (its one-head kernel) and on three causal
-     queries, timed at batch 1 beside its bound, and both K4 and K5 are
-     checked in the TPU kernel's own function; the encoder attention's backward kernels K6
-     (dK, dV) and K7 (dQ) and K2's residual output in fp32 and bf16, timed
-     at the fine-tune's shape;
+     heads; K4 and K5 are each held to themselves bit for bit over two
+     launches, K4 checked on an fp32 cache of 448 rows (streamed through
+     its ring) and a bf16 one at batch 1, K5 at an odd head count (its
+     one-head kernel) and on three causal queries, both timed at batch 1
+     beside their bounds and checked in the TPU kernel's own function; the
+     encoder attention's backward kernels K6 (dK, dV; also at T=333 and
+     the same bits over two launches) and K7 (dQ) and K2's residual output
+     in fp32 and bf16, timed at the fine-tune's shape beside K2's fp32
+     bound and SDPA's fp32 forward;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -266,11 +270,14 @@ def phase_decode_attention(da, quantize):
     lengths = (torch.randint(0, T_self, (B,), generator=g, device=dev)
                + 1).to(torch.int32)
     args = (q, k, v, lengths, H)
-    (o4, p4), (o5, p5), (o5b, p5b) = (
-        fn(*args, causal=True, return_probs=True) for fn in paths + paths[1:])
+    (o4, p4), (o4b, p4b), (o5, p5), (o5b, p5b) = (
+        fn(*args, causal=True, return_probs=True)
+        for fn in (paths[0], paths[0], paths[1], paths[1]))
     plain, p_plain = da.attend_decode_plain(*args, causal=True,
                                             return_probs=True)
     torch.cuda.synchronize()
+    check(torch.equal(o4, o4b) and torch.equal(p4, p4b),
+          "K4 bf16 self-attention: the same bits over two launches")
     check(torch.equal(o5, o5b) and torch.equal(p5, p5b),
           "K5 bf16 self-attention: the same bits over two launches")
     tol = 1e-2   # bf16 outputs (an ulp is 7.8e-3 at 1); fp32 sums reordered
@@ -283,7 +290,22 @@ def phase_decode_attention(da, quantize):
             f"{perr:.3e}")
         check(e <= tol, f"{name.strip()} bf16 self-attention vs plain")
     err = (o4.float() - plain.float()).abs().max().item()
-    log("  K5 bf16 self-attention: the same bits over two launches")
+    log("  K4 and K5 bf16 self-attention: each the same bits over two "
+        "launches")
+    # The one-shot engine's cache is n_text_ctx = 448 rows: K4 with every
+    # row visible, on an fp32 cache (K and V of 448 rows, 224 KB, stream
+    # through its ring) and on a bf16 cache at batch 1 (all in flight).
+    for dtype, nb, tol in ((torch.float32, 2, 1e-5), (torch.bfloat16, 1, tol)):
+        qx = rnd(nb, 1, HD).to(dtype)
+        kx, vx = (rnd(nb, 448, HD).to(dtype) for _ in range(2))
+        lx = torch.full((nb,), 448, dtype=torch.int32, device=dev)
+        ox = da.attend_decode(qx, kx, vx, lx, H)
+        e = (ox.float() - da.attend_decode_plain(qx, kx, vx, lx, H).float()
+             ).abs().max().item()
+        log(f"  K4 {dtype}, B={nb}, T=448, n=448: max_abs_err {e:.3e} "
+            f"(tolerance {tol}: fp32 sums over 448 keys reordered"
+            f"{'; bf16 outputs' if dtype == torch.bfloat16 else ''})")
+        check(e <= tol, f"K4 {dtype} T=448 vs plain")
     n_keys = int(lengths.sum())          # the rows this data needs read
     b, by = bound_ms(2 * n_keys * HD * 2 + 2 * B * HD * 2 + 4 * B,
                      4 * n_keys * HD, "fp32")
@@ -407,7 +429,12 @@ def phase_decode_attention(da, quantize):
         cross_ms = time_ms(on_layers(fn, slice(0, 1)), iters=2 * N_LAYER)
         log(f"  batch 1 ({fn.__name__}): bf16 self T={T_self} (100 keys) "
             f"{self_ms:.4f} ms, int8 cross T={T_cross} {cross_ms:.4f} ms")
-        if fn is da.attend_decode_pipelined:
+        if fn is da.attend_decode:
+            # 100 visible keys of K and V, the query and the output, bf16.
+            rows[0]["batch1_ms"] = self_ms
+            rows[0]["batch1_bound_ms"] = bound_ms(
+                2 * 100 * HD * 2 + 2 * HD * 2 + 4, 4 * 100 * HD, "fp32")[0]
+        else:
             rows[-1]["batch1_ms"] = cross_ms
             rows[-1]["batch1_bound_ms"] = cross_bound(1)[0]
     del cross_layers, self_b1
@@ -431,14 +458,15 @@ def phase_decode_attention(da, quantize):
     return rows
 
 
-def phase_flash_backward(fa):
+def phase_flash_backward(fa, k2_row):
     """K2's residual mode (the per-row log-sum-exp), K6 (dK, dV) and K7 (dQ)
     at the large-v3 encoder's shapes (20 heads, T=1500, Dh=64, read through
     the strided [B, T, H*Dh] projection layout as encode() does): against
     their plain versions on the same inputs, in fp32 at the fine-tune
     phase's shape (B=2) and in bf16 at B=1; then timed on the fp32 B=2
     inputs that were checked, beside their bounds and the backward of SDPA
-    on the same inputs."""
+    on the same inputs. K2's fp32 residual-mode time, its fp32 bound and
+    SDPA's fp32 forward on the same inputs go into K2's row (`k2_row`)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 50)
     H, T, D = 20, 1500, 64
@@ -478,10 +506,25 @@ def phase_flash_backward(fa):
         return (q, k, v, do, lse, delta), abs_errs
 
     compare(1, torch.bfloat16)
+    # K6 at a T that is not a multiple of its 128-key or 64-query tiles.
+    x = [torch.randn(1, 333, H * D, generator=g, device=dev).view(
+        1, 333, H, D).transpose(1, 2) for _ in range(4)]
+    o, lse = fa.attend_lse(*x[:3])
+    rest = (x[3], lse, fa.delta_rows(o, x[3]))
+    rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in
+              zip(fa.flash_attention_bwd_dkv(*x[:3], *rest),
+                  fa.backward_dkv_plain(*x[:3], *rest)))
+    log(f"K6 (fp32, B=1, T=333): max_abs_err / max|plain| {rel:.3e} "
+        f"(tolerance 1e-4)")
+    check(rel <= 1e-4, "K6 fp32 T=333 vs plain")
     # The fine-tune's shape, fp32: these inputs are checked, then timed, and
     # their errors are the kernels line's max_abs_err.
     B = 2
     args, abs_errs = compare(B, torch.float32)
+    first, again = (fa.flash_attention_bwd_dkv(*args) for _ in range(2))
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "K6: the same bits over two launches")
+    log("  K6 (fp32, B=2): the same bits over two launches")
     err_dkv = max(abs_errs["dk"], abs_errs["dv"])
     err_dq = abs_errs["dq"]
     q, k, v, do = args[:4]
@@ -492,29 +535,50 @@ def phase_flash_backward(fa):
     elems = B * H * T * D * 4            # one fp32 [B, H, T, Dh] tensor
     rows_bytes = 2 * B * H * T * 4       # lse and delta
     k2_ms = time_ms(lambda: fa.flash_attention_lse(q, k, v))
-    log(f"  K2 residual mode (fp32, B=2): {k2_ms:.4f} ms; inference mode "
+    k2_sdpa_ms = time_ms(lambda: sdpa(q, k, v))
+    # Four fp32 [B, H, T, Dh] tensors and the lse moved; 2 T x T x Dh products.
+    k2_bound, k2_by = bound_ms(4 * elems + B * H * T * 4,
+                               4 * B * H * T * T * D, "fp32")
+    log(f"  K2 residual mode (fp32, B=2): {k2_ms:.4f} ms, bound "
+        f"{k2_bound:.4f} ms ({k2_by}), SDPA fp32 forward {k2_sdpa_ms:.4f} ms;"
+        f" inference mode "
         f"{time_ms(lambda: fa.flash_attention(q, k, v)):.4f} ms")
+    k2_row.update(fp32_residual_ms=k2_ms, fp32_residual_bound_ms=k2_bound,
+                  fp32_residual_library_ms=k2_sdpa_ms)
     rows = []
-    for name, fn, plain, wrt, n_out, n_mm, err in (
+    for name, fn, plain, wrt, n_out, n_mm, err, src in (
             ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
-             fa.backward_dkv_plain, leaves[1:], 2, 4, err_dkv),
+             fa.backward_dkv_plain, leaves[1:], 2, 4, err_dkv,
+             "flash_attention_bwd_tc.cu"),
             ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
-             fa.backward_dq_plain, leaves[:1], 1, 3, err_dq)):
+             fa.backward_dq_plain, leaves[:1], 1, 3, err_dq,
+             "flash_attention_bwd.cu")):
         # n_mm T x T x Dh products: S and dP recomputed, then dV and dK (K6)
         # or dQ (K7); each input read once, each output written once.
-        b, by = bound_ms((4 + n_out) * elems + rows_bytes,
-                         n_mm * 2 * B * H * T * T * D, "fp32")
+        n_bytes = (4 + n_out) * elems + rows_bytes
+        flops = n_mm * 2 * B * H * T * T * D
+        b, by = bound_ms(n_bytes, flops, "fp32")
         rows.append(dict(
-            name=name, source="openhush_tpu_torch/csrc/flash_attention_bwd.cu",
+            name=name, source="openhush_tpu_torch/csrc/" + src,
             replaces=("jax/experimental/pallas/ops/tpu/flash_attention.py:"
                       + ("941" if n_out == 2 else "1287")),
             counter=fn, max_abs_err=err,
             ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: plain(*args)),
             bound_ms=b, bound_by=by, library_ms=lib(wrt)))
+        if fn is fa.flash_attention_bwd_dkv:
+            # On the tensor cores each fp32 product is six bf16 products
+            # (three bf16 parts an operand): the least time for the same
+            # function at fp32 accuracy. The CUDA-core bound stays beside it.
+            rows[-1]["cuda_core_bound_ms"] = b
+            rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+                n_bytes, 6 * flops, "bf16")
     for r in rows:
         log(f"  {r['name']} (fp32, B=2): kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), SDPA backward for the same gradients "
+            f"({r['bound_by']})"
+            + (f", fp32 CUDA-core bound {r['cuda_core_bound_ms']:.4f} ms"
+               if "cuda_core_bound_ms" in r else "")
+            + f", SDPA backward for the same gradients "
             f"{r['library_ms']:.4f} ms")
     return rows
 
@@ -993,23 +1057,25 @@ def phase_cli():
 
 
 def phase_sass(so, nvcc: str) -> None:
-    """K2's bf16 kernel runs on the tensor cores: count its warpgroup MMA
-    instructions (HGMMA) in the built library's SASS, by the toolkit's
-    cuobjdump, and fail if there are none."""
+    """K2's bf16 kernel and K6 run on the tensor cores: count each one's
+    warpgroup MMA instructions (HGMMA) in the built library's SASS, by the
+    toolkit's cuobjdump, and fail if either has none."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
-        log(f"  {cuobjdump} not found: K2's SASS not inspected")
+        log(f"  {cuobjdump} not found: the SASS not inspected")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    count, in_k2 = 0, False
+    kernels = {"flash_attention_tc_kernel": 0, "flash_bwd_dkv_tc_kernel": 0}
+    current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            in_k2 = "flash_attention_tc_kernel" in line
-        elif in_k2 and "HGMMA" in line:
-            count += 1
-    log(f"  flash_attention_tc_kernel SASS: {count} HGMMA (wgmma) instructions")
-    check(count > 0, "K2 bf16 on the tensor cores (HGMMA in its SASS)")
+            current = next((k for k in kernels if k in line), None)
+        elif current is not None and "HGMMA" in line:
+            kernels[current] += 1
+    for name, count in kernels.items():
+        log(f"  {name} SASS: {count} HGMMA (wgmma) instructions")
+        check(count > 0, f"{name} on the tensor cores (HGMMA in its SASS)")
 
 
 def main() -> int:
@@ -1048,7 +1114,7 @@ def main() -> int:
     t = time.monotonic()
     rows = phase_kernels(frontend, flash_attention, quantize, mel)
     rows += phase_decode_attention(decode_attention, quantize)
-    rows += phase_flash_backward(flash_attention)
+    rows += phase_flash_backward(flash_attention, rows[1])
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -1103,7 +1169,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        for key in ("batch1_ms", "batch1_bound_ms"):
+        for key in ("batch1_ms", "batch1_bound_ms", "cuda_core_bound_ms",
+                    "fp32_residual_ms",
+                    "fp32_residual_bound_ms", "fp32_residual_library_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
     log(smi)

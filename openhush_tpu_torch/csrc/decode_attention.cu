@@ -37,9 +37,19 @@
 // the next rows, so a warp reads whole 32-byte sectors.
 //
 // K4 (the self-attention, T <= 448): one CTA of 128 threads per (head,
-// query, row) streams K with a few loads in flight per thread, keeps the
-// scores in shared memory, softmaxes them, then streams V, each thread
-// owning 16 B of columns.
+// query, row). Its bound is bytes, but a row is small (100 keys of bf16 K
+// and V for 20 heads are 0.51 MB, 0.15 us at the card's rate): what a
+// launch takes is the launch itself, its chain of dependent trips to device
+// memory and CTA barriers, and the instructions' latency. So at entry each
+// CTA asks for the query, all its visible K rows and all its V rows
+// (cp.async, 16 B a thread), then waits once; the scores stay in shared
+// memory until the row's max and sum are known (the reference rounds
+// exp(s - m) / l, and in int8 mode the joint prob scale max_t(p*vs) needs
+// the whole row first), each warp reduces its own rows in registers and the
+// warps are joined once per quantity. Where K and V of T rows do not fit
+// (an fp32 cache of 448 rows, T = 1500 in the cross-attention's modes), the
+// rows stream through a ring of 4 stages, V following K into the same
+// slots. The sums run in a fixed order: the same bits on every launch.
 //
 // K5 (the int8 cross-attention, T = 1500): a CTA streaming 1500 keys alone
 // keeps too few bytes in flight (at batch 1 that is 20 CTAs on 132 SMs),
@@ -92,9 +102,10 @@ namespace {
 constexpr int HEAD_DIM = 64;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int UNROLL = 4;                     // K4: loads in flight
+constexpr int STAGES = 4;                     // K4: the ring's groups of passes
+constexpr int PASS_BYTES = THREADS * 16;      // K4: a pass, 16 B per thread
 constexpr int CLUSTER = 8;                    // K5: CTAs per query
-constexpr size_t MAX_SMEM = 48 * 1024;        // K4: dynamic shared memory
+constexpr size_t MAX_SMEM = 200 * 1024;       // K4: dynamic shared memory
 constexpr size_t MAX_SMEM_SPLIT = 200 * 1024; // K5: a slice's rows, sums and scores
 
 template <typename T> struct Layout {
@@ -157,53 +168,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) v = fmaxf(v, red[w]);
-  __syncthreads();
-  return v;
-}
-
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) v += red[w];
-  __syncthreads();
-  return v;
-}
-
-// Streams rows [0, n) of one head's K or V: fn(t, chunk) is called for the
-// 16-byte piece (row t, column chunk c) that this thread owns, rows in
-// ascending order, straight from global memory.
-template <typename T, typename Fn>
-__device__ __forceinline__ void stream_rows(const T* base, long long row_stride,
-                                            int n, Fn&& fn) {
-  using L = Layout<T>;
-  const int c = threadIdx.x % L::CHUNKS;
-  const int r0 = threadIdx.x / L::CHUNKS;
-  for (int tb = 0; tb < n; tb += L::RPP * UNROLL) {
-    int4 ch[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = tb + u * L::RPP + r0;
-      ch[u] = t < n ? __ldg(reinterpret_cast<const int4*>(
-                          base + t * row_stride + c * L::VALS))
-                    : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) fn(tb + u * L::RPP + r0, ch[u]);
-  }
 }
 
 // Thread i < G*64's element of the queries of G adjacent heads of one
@@ -280,7 +244,142 @@ __device__ __forceinline__ float score_of(float dot, const float* ks_t, float qs
   return dot * sm_scale;
 }
 
-// K4: one CTA of 128 threads per (head, query, row) streams the row's keys.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// K4's dynamic shared memory: a ring of `ring` passes of rows (a pass is
+// one 16-byte piece per thread; K's rows, then V's, through the same
+// slots), then every key's score and, in QUANT mode, every key's ks and vs.
+template <bool QUANT> __host__ __device__ constexpr size_t direct_tail(int T) {
+  return (size_t)T * sizeof(float) * (QUANT ? 3 : 1);
+}
+// The ring's passes for a cache of T rows: K and V of all T rows, rounded
+// up to whole stages, or as many whole stages as MAX_SMEM holds beside the
+// scores (then the rows stream through the ring). Fewer than STAGES: no fit.
+template <typename KV, bool QUANT> int ring_passes(int T) {
+  using L = Layout<KV>;
+  const long long need = 2LL * ((T + L::RPP - 1) / L::RPP);
+  const long long want = (need + STAGES - 1) / STAGES * STAGES;
+  const long long room =
+      ((long long)MAX_SMEM - (long long)direct_tail<QUANT>(T)) / PASS_BYTES / STAGES * STAGES;
+  return (int)(want < room ? want : room);
+}
+
+// K4: asks for this thread's pieces of passes [p0, p1) (pass p < kp: K's
+// rows, else V's) in consecutive slots from `slot`, and the ks of its K
+// rows in QUANT mode, as one cp.async group. Returns whether the group
+// holds a copy. (No division here or in the loops that call it: at a few
+// us a launch, a division's chain of dependent instructions shows.)
+template <typename KV, bool QUANT>
+__device__ __forceinline__ bool issue_passes(int4* slot, float* kss, const KV* kb, const KV* vb,
+                                             const float* ksb, int p0, int p1, int kp, int n,
+                                             int HD, int H) {
+  using L = Layout<KV>;
+  const int c = threadIdx.x % L::CHUNKS, r0 = threadIdx.x / L::CHUNKS;
+  bool copied = false;
+  for (int p = p0; p < p1; ++p, slot += THREADS) {
+    const bool is_k = p < kp;
+    const int t = (is_k ? p : p - kp) * L::RPP + r0;
+    if (t < n) {
+      cp_async16(slot + threadIdx.x, (is_k ? kb : vb) + (long long)t * HD + c * L::VALS);
+      if (QUANT && is_k && c == 0) cp_async4(kss + t, ksb + (long long)t * H);
+      copied = true;
+    }
+  }
+  cp_async_commit();
+  return copied;
+}
+
+// K4, streaming: moves to the next pass's slot; once a stage has been read,
+// asks for stage `next` into its slots.
+template <typename KV, bool QUANT>
+__device__ __forceinline__ void next_pass(int4*& cur, int& in_stage, int& next, unsigned& held,
+                                          int4* slots, int span, int sp, int P, float* kss,
+                                          const KV* kb, const KV* vb, const float* ksb, int kp,
+                                          int n, int HD, int H) {
+  cur += THREADS;
+  if (++in_stage == sp) {
+    const bool copied = issue_passes<KV, QUANT>(cur - sp * THREADS, kss, kb, vb, ksb, next * sp,
+                                                min((next + 1) * sp, P), kp, n, HD, H);
+    held = (held << 1) | (copied ? 1u : 0u);
+    ++next;
+    in_stage = 0;
+    if (cur == slots + span * THREADS) cur = slots;
+  }
+}
+
+// K4: the score of key t from this thread's piece `ch` of its row (every
+// lane calls it; lane c == 0 of the row writes sc[t]); returns the running
+// max of the scores this thread wrote.
+template <typename KV, bool QUANT>
+__device__ __forceinline__ float score_pass(const int4& ch, int t, int n, int c, const float* qw,
+                                            const int* q8, const float* kss, float qscale,
+                                            float sm_scale, float* sc, float lmax) {
+  const float dot = piece_dot<KV, QUANT>(t < n ? ch : make_int4(0, 0, 0, 0), c, qw, q8);
+  if (c == 0 && t < n) {
+    const float score = score_of<QUANT>(dot, kss + t, qscale, sm_scale);
+    sc[t] = score;
+    lmax = fmaxf(lmax, score);
+  }
+  return lmax;
+}
+
+// K4: adds prob sc[t] times this thread's piece `ch` of V's row t to its
+// column sums (int32 in QUANT mode).
+template <typename KV, bool QUANT, typename Acc>
+__device__ __forceinline__ void value_pass(Acc (&acc)[Layout<KV>::VALS], const int4& ch, int t,
+                                           int n, const float* sc) {
+  if (t >= n) return;
+  if constexpr (QUANT) {
+    const int p8 = (int)sc[t];
+#pragma unroll
+    for (int j = 0; j < Layout<KV>::VALS; ++j) acc[j] += p8 * int8_at(ch, j);
+  } else {
+    const float pr = sc[t];
+#pragma unroll
+    for (int j = 0; j < Layout<KV>::VALS; ++j) acc[j] = fmaf(pr, elem<KV>(ch, j), acc[j]);
+  }
+}
+
+// The max and the sum over a warp's 32 lanes, every lane getting the result.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// K4: before the passes of the stage issued STAGES stages ago, waits until
+// at most the later stages' groups that hold copies are pending (groups
+// complete in order; bit i of `held`: the i-th most recent stage's group
+// holds a copy of this thread's).
+__device__ __forceinline__ void wait_stage(unsigned held) {
+  static_assert(STAGES == 4, "a case for each count of later groups");
+  switch (__popc(held & ((1u << (STAGES - 1)) - 1))) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<STAGES - 1>(); break;
+  }
+}
+
+// K4: one CTA of 128 threads per (head, query, row). Pass p < kp holds K's
+// rows p*RPP.., pass kp + p V's same rows; thread i always takes the piece
+// (row p*RPP + i / CHUNKS, column chunk i % CHUNKS) of a pass and copies
+// exactly the pieces it computes on, so no barrier guards the slots. When
+// the ring holds all 2 * kp passes (every self-attention call: 2 * 448 rows
+// of bf16 are 112 KB), they are one group asked for at the entry and waited
+// on once, and the loops over them are unrolled; else they stream in
+// STAGES groups of sp passes, stage st + STAGES asked for as soon as stage
+// st has been read. Warp w owns the rows whose pieces its lanes hold (RW
+// per pass): their scores, exps and probs, so the softmax needs one CTA
+// barrier per quantity (max, sum and, int8, max(p*vs)), and the value sum
+// one more. tools/torch_k4_probe.py times the launch and each part.
 template <typename KV, typename QO, bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
@@ -288,15 +387,19 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
                         int len_default, int causal, QO* __restrict__ out,
                         float* __restrict__ probs, int S, int H, int T,
-                        float sm_scale) {
+                        float sm_scale, int ring) {
   using L = Layout<KV>;
+  using Acc = typename std::conditional<QUANT, int, float>::type;   // value sums
+  constexpr int RW = 32 / L::CHUNKS;                 // a warp's rows of a pass
   extern __shared__ __align__(16) unsigned char smem[];
-  float* part = reinterpret_cast<float*>(smem);                  // [RPP][64]
-  float* sc = part + L::RPP * HEAD_DIM;                          // [T]
-  __shared__ float qs[HEAD_DIM];
-  __shared__ int q8w[HEAD_DIM / 4];
-  __shared__ float red[WARPS];
-  __shared__ float qscale_s;
+  int4* slots = reinterpret_cast<int4*>(smem);       // [ring][THREADS]
+  float* sc = reinterpret_cast<float*>(smem + (size_t)ring * PASS_BYTES);   // [T]
+  float* kss = sc + T;                               // [T], QUANT
+  float* vss = kss + T;                              // [T], QUANT
+  __shared__ float qs[WARPS][HEAD_DIM];              // each warp's copy
+  __shared__ int q8w[WARPS][HEAD_DIM / 4];
+  __shared__ float red_max[WARPS], red_sum[WARPS], red_pv[WARPS];
+  __shared__ Acc part[WARPS][HEAD_DIM];
 
   const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
   const int HD = H * HEAD_DIM;
@@ -315,92 +418,172 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   const KV* vb = v + row0 * HD + h * HEAD_DIM;
   const float* ksb = QUANT ? ks + row0 * H + h : nullptr;
   const float* vsb = QUANT ? vs + row0 * H + h : nullptr;
-  const int c = threadIdx.x % L::CHUNKS;
-  stage_query<QUANT, 1>(query_elem<1>(q + qo_off), qs, q8w, &qscale_s);
-  const float qscale = QUANT ? qscale_s : 1.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = threadIdx.x % L::CHUNKS, r0 = threadIdx.x / L::CHUNKS;
+
+  // -- the query's load first; then every pass of the ring in flight -------
+  const float qa = load_f32(q + qo_off + lane), qb = load_f32(q + qo_off + lane + 32);
+  const int kp = (n + L::RPP - 1) / L::RPP;          // passes of K, and of V
+  const int P = 2 * kp;
+  // Every pass in flight from the entry, one group (`whole`); else STAGES
+  // groups of sp passes each through the ring's span.
+  const bool whole = P <= ring;
+  const int sp = whole ? P : ring / STAGES;
+  const int span = STAGES * sp;
+  bool vs_copied = false;
+  if constexpr (QUANT)              // the vs of this lane's softmax entries,
+    for (int j = lane; j < kp * RW; j += 32) {      // in the first group
+      const int t = (j / RW) * L::RPP + warp * RW + j % RW;
+      if (t < n) {
+        cp_async4(vss + t, vsb + (long long)t * H);
+        vs_copied = true;
+      }
+    }
+  // A group with no copy is never pending, so cp.async.wait_group counts
+  // only this thread's groups that hold copies: bit i of `held` says
+  // whether the i-th most recent stage gave this thread any.
+  unsigned held = 0;
+  if (whole) {
+    issue_passes<KV, QUANT>(slots, kss, kb, vb, ksb, 0, P, kp, n, HD, H);
+  } else {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      const bool copied = issue_passes<KV, QUANT>(slots + st * sp * THREADS, kss, kb, vb, ksb,
+                                                  st * sp, min((st + 1) * sp, P), kp, n, HD, H);
+      held = (held << 1) | (copied || (st == 0 && vs_copied) ? 1u : 0u);
+    }
+  }
+  // Streaming: the pass being read, its place in its stage, and the next
+  // stage to ask for once this one has been read (into the same slots).
+  int4* cur = slots;
+  int in_stage = 0, next = STAGES;
+
+  // -- the query, in this warp's copy: fp32 and, QUANT, its int8 levels:
+  //    qscale = max(max|q_h|, 1e-10) / 127;  q8 = clip(rint(q_h / qscale)) -----
+  float* qw = qs[warp];
+  int* q8 = q8w[warp];
+  qw[lane] = qa;
+  qw[lane + 32] = qb;
+  float qscale = 1.f;
+  if constexpr (QUANT) {
+    qscale = fmaxf(warp_max(fmaxf(fabsf(qa), fabsf(qb))), 1e-10f) / 127.0f;
+    __syncwarp();
+    if (lane < HEAD_DIM / 4) {
+      int w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float r = fminf(fmaxf(rintf(qw[4 * lane + j] / qscale), -127.f), 127.f);
+        w |= ((int)r & 0xff) << (8 * j);
+      }
+      q8[lane] = w;
+    }
+  }
+  __syncwarp();
 
   // -- scores: one 16-byte piece per thread, summed over the row's lanes ----
   float lmax = -FLT_MAX;
-  stream_rows<KV>(kb, HD, n, [&](int t, const int4& ch) {
-    const float dot = piece_dot<KV, QUANT>(ch, c, qs, q8w);
-    if (c == 0 && t < n) {
-      const float score = score_of<QUANT>(dot, QUANT ? ksb + (long long)t * H : nullptr,
-                                           qscale, sm_scale);
-      sc[t] = score;
-      lmax = fmaxf(lmax, score);
+  if (whole) {
+    cp_async_wait<0>();             // the one wait on memory
+#pragma unroll 4
+    for (int p = 0; p < kp; ++p)
+      lmax = score_pass<KV, QUANT>(slots[p * THREADS + threadIdx.x], p * L::RPP + r0, n, c, qw,
+                                   q8, kss, qscale, sm_scale, sc, lmax);
+  } else {
+    for (int p = 0; p < kp; ++p) {
+      if (in_stage == 0) wait_stage(held);   // this pass's stage has landed
+      lmax = score_pass<KV, QUANT>(cur[threadIdx.x], p * L::RPP + r0, n, c, qw, q8, kss, qscale,
+                                   sm_scale, sc, lmax);
+      next_pass<KV, QUANT>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb, kp,
+                           n, HD, H);
     }
-  });
-  __syncthreads();
-  const float m = block_max(lmax, red);
-
-  // -- softmax (fp32), then the probs the value sum takes --------------------
-  float lsum = 0.f;
-  for (int t = threadIdx.x; t < n; t += THREADS) {
-    const float e = expf(sc[t] - m);
-    sc[t] = e;
-    lsum += e;
   }
-  const float l = block_sum(lsum, red);
+
+  // -- softmax (fp32): each warp over its own rows, the warps joined once per
+  //    quantity, in warp order; then the probs the value sum takes ----------
+  lmax = warp_max(lmax);
+  if (lane == 0) red_max[warp] = lmax;
+  __syncthreads();
+  float m = red_max[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red_max[w]);
+  float lsum = 0.f;
+  for (int j = lane; j < kp * RW; j += 32) {
+    const int t = (j / RW) * L::RPP + warp * RW + j % RW;   // warp's j-th row
+    if (t < n) {
+      const float e = expf(sc[t] - m);
+      sc[t] = e;
+      lsum += e;
+    }
+  }
+  lsum = warp_sum(lsum);
+  if (lane == 0) red_sum[warp] = lsum;
+  __syncthreads();
+  float l = red_sum[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) l += red_sum[w];
   float pscale = 1.f;
   if constexpr (QUANT) {
     float pmax = 0.f;
-    for (int t = threadIdx.x; t < n; t += THREADS) {
-      const float pv = (sc[t] / l) * vsb[(long long)t * H];
-      sc[t] = pv;
-      pmax = fmaxf(pmax, pv);
+    for (int j = lane; j < kp * RW; j += 32) {
+      const int t = (j / RW) * L::RPP + warp * RW + j % RW;   // warp's j-th row
+      if (t < n) {
+        const float pv = (sc[t] / l) * vss[t];
+        sc[t] = pv;
+        pmax = fmaxf(pmax, pv);
+      }
     }
-    pscale = fmaxf(block_max(pmax, red), 1e-20f) / 127.0f;
-    for (int t = threadIdx.x; t < n; t += THREADS)
-      sc[t] = fminf(fmaxf(rintf(sc[t] / pscale), -127.f), 127.f);
-  } else {
-    for (int t = threadIdx.x; t < n; t += THREADS) sc[t] = round_prob<KV>(sc[t] / l);
+    pmax = warp_max(pmax);
+    if (lane == 0) red_pv[warp] = pmax;
+    __syncthreads();
+    pmax = red_pv[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) pmax = fmaxf(pmax, red_pv[w]);
+    pscale = fmaxf(pmax, 1e-20f) / 127.0f;
   }
-  __syncthreads();
-  if (pb)                           // the value sum's probs, for checks
-    for (int t = threadIdx.x; t < T; t += THREADS) pb[t] = t < n ? sc[t] : 0.f;
+  for (int j = lane; j < kp * RW; j += 32) {
+    const int t = (j / RW) * L::RPP + warp * RW + j % RW;   // warp's j-th row
+    if (t < n) {
+      const float p = QUANT ? fminf(fmaxf(rintf(sc[t] / pscale), -127.f), 127.f)
+                            : round_prob<KV>(sc[t] / l);
+      sc[t] = p;
+      if (pb) pb[t] = p;            // the value sum's probs, for checks
+    }
+  }
+  if (pb)
+    for (int t = n + threadIdx.x; t < T; t += THREADS) pb[t] = 0.f;
+  __syncwarp();
 
-  // -- values: each thread sums its 16 B of columns over its rows -----------
-  if constexpr (QUANT) {
-    int acc[L::VALS];
+  // -- values: each thread sums its 16 B of columns over its rows, then the
+  //    warp's rows by shuffles and the warps in order ------------------------
+  Acc acc[L::VALS];
 #pragma unroll
-    for (int j = 0; j < L::VALS; ++j) acc[j] = 0;
-    stream_rows<KV>(vb, HD, n, [&](int t, const int4& ch) {
-      if (t < n) {
-        const int p8 = (int)sc[t];
-#pragma unroll
-        for (int j = 0; j < L::VALS; ++j) acc[j] += p8 * int8_at(ch, j);
-      }
-    });
-#pragma unroll
-    for (int j = 0; j < L::VALS; ++j)
-      reinterpret_cast<int*>(part)[(threadIdx.x / L::CHUNKS) * HEAD_DIM + c * L::VALS + j] = acc[j];
+  for (int j = 0; j < L::VALS; ++j) acc[j] = 0;
+  if (whole) {
+#pragma unroll 4
+    for (int p = kp; p < P; ++p)
+      value_pass<KV, QUANT>(acc, slots[p * THREADS + threadIdx.x], (p - kp) * L::RPP + r0, n,
+                            sc);
   } else {
-    float acc[L::VALS];
-#pragma unroll
-    for (int j = 0; j < L::VALS; ++j) acc[j] = 0.f;
-    stream_rows<KV>(vb, HD, n, [&](int t, const int4& ch) {
-      if (t < n) {
-        const float p = sc[t];
-#pragma unroll
-        for (int j = 0; j < L::VALS; ++j) acc[j] = fmaf(p, elem<KV>(ch, j), acc[j]);
-      }
-    });
-#pragma unroll
-    for (int j = 0; j < L::VALS; ++j)
-      part[(threadIdx.x / L::CHUNKS) * HEAD_DIM + c * L::VALS + j] = acc[j];
+    for (int p = kp; p < P; ++p) {
+      if (in_stage == 0) wait_stage(held);
+      value_pass<KV, QUANT>(acc, cur[threadIdx.x], (p - kp) * L::RPP + r0, n, sc);
+      next_pass<KV, QUANT>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb, kp,
+                           n, HD, H);
+    }
   }
+#pragma unroll
+  for (int off = L::CHUNKS; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < L::VALS; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  if (lane < L::CHUNKS)             // lane c holds chunk c's warp sum
+#pragma unroll
+    for (int j = 0; j < L::VALS; ++j) part[warp][c * L::VALS + j] = acc[j];
   __syncthreads();
   if (threadIdx.x < HEAD_DIM) {
-    float o;
-    if constexpr (QUANT) {
-      int total = 0;
-      for (int r = 0; r < L::RPP; ++r) total += reinterpret_cast<int*>(part)[r * HEAD_DIM + threadIdx.x];
-      o = (float)total * pscale;
-    } else {
-      o = 0.f;
-      for (int r = 0; r < L::RPP; ++r) o += part[r * HEAD_DIM + threadIdx.x];
-    }
-    store_f32(out + qo_off + threadIdx.x, o);
+    Acc total = part[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) total += part[w][threadIdx.x];
+    store_f32(out + qo_off + threadIdx.x, QUANT ? (float)total * pscale : (float)total);
   }
 }
 
@@ -448,8 +631,8 @@ __device__ __forceinline__ void at_only(float (&v)[G], int g, float x, float ide
   for (int i = 0; i < G; ++i) v[i] = i == g ? x : identity;
 }
 
-// The CTA's reduction by `op` of each of G values, in the order of
-// block_max and block_sum; every thread gets the G results. `red` holds
+// The CTA's reduction by `op` of each of G values: shuffles within each
+// warp, then the warps in order; every thread gets the G results. `red` holds
 // WARPS * G floats.
 template <int G, typename Op>
 __device__ __forceinline__ void block_reduce(float (&v)[G], float* red, Op op) {
@@ -733,14 +916,8 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
   }
 }
 
-// Dynamic shared memory of a launch: K4 keeps all T scores and its value
-// partials; K5 a slice's rows of G heads, their value sums, scores and
-// scales.
-template <typename KV>
-size_t smem_direct(int T) {
-  using L = Layout<KV>;
-  return L::RPP * HEAD_DIM * sizeof(float) + (size_t)T * sizeof(float);
-}
+// K5's dynamic shared memory: a slice's rows of G heads, their value sums,
+// scores and scales.
 template <typename KV>
 size_t smem_split(int T, int G) {
   return (size_t)SplitSmem((T + CLUSTER - 1) / CLUSTER, HEAD_DIM * (int)sizeof(KV), G).total;
@@ -780,13 +957,17 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     return launch_split<KV, QO, QUANT, 1>(q, k, v, ks, vs, lengths, len_default, causal, out,
                                           probs, B, S, H, T, sm_scale, st);
   } else {
-    const size_t smem = smem_direct<KV>(T);
-    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const auto kernel = decode_attention_kernel<KV, QO, QUANT>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    const int ring = ring_passes<KV, QUANT>(T);
+    if (ring < STAGES) return (int)cudaErrorInvalidValue;
     dim3 grid(H, S, B);
-    decode_attention_kernel<KV, QO, QUANT><<<grid, THREADS, smem, st>>>(
+    kernel<<<grid, THREADS, (size_t)ring * PASS_BYTES + direct_tail<QUANT>(T), st>>>(
         (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
         (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T,
-        sm_scale);
+        sm_scale, ring);
     return (int)cudaGetLastError();
   }
 }

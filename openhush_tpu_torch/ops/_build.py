@@ -38,7 +38,7 @@ SIGNATURES = {
     "oh_log_mel": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
     "oh_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                            ctypes.POINTER(_LL), _F, _I, _P],
-    "oh_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 4
+    "oh_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 4
                                   + [ctypes.POINTER(_LL), _F, _I, _P],
     "oh_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4
                                  + [ctypes.POINTER(_LL), _F, _I, _P],

@@ -32,7 +32,8 @@ import torch
 from openhush_tpu_torch.ops import _build
 
 HEAD_DIM = 64            # the only head size the kernel takes (every Whisper)
-MAX_SMEM = 48 * 1024     # K4's dynamic shared memory, at most
+MAX_SMEM = 200 * 1024    # K4's dynamic shared memory, at most
+STAGES = 4               # K4's ring: at least one 2 KB pass per stage
 MAX_SMEM_SPLIT = 200 * 1024   # K5's, at most
 CLUSTER = 8              # K5's CTAs per query, each a slice of the keys
 NEG = torch.finfo(torch.float32).min    # mask fill, as jnp.finfo(f32).min
@@ -161,9 +162,9 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
         per = -(-T // CLUSTER)        # 3 KB, the scores, ks and vs
         rows = per * HEAD_DIM * k.element_size()
         fits = rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
-    else:              # the value partials and every key's score
-        part = (128 // (HEAD_DIM // (16 // k.element_size()))) * HEAD_DIM * 4
-        fits = part + T * 4 <= MAX_SMEM
+    else:              # every key's score (and ks, vs), one ring of passes
+        tail = T * 4 * (3 if kv_kind == 0 else 1)
+        fits = tail + STAGES * 2048 <= MAX_SMEM
     if not fits:
         raise ValueError(f"{name}: T={T} keys do not fit the kernel's "
                          f"shared memory")

@@ -1,6 +1,8 @@
 """Encoder self-attention on the hand-written CUDA flash kernels, forward
-(csrc/flash_attention.cu, K2) and backward (csrc/flash_attention_bwd.cu, K6
-for dK and dV, K7 for dQ).
+(csrc/flash_attention.cu and, for bf16, csrc/flash_attention_tc.cu: K2) and
+backward (csrc/flash_attention_bwd_tc.cu, K6 for dK and dV, on the tensor
+cores at fp32 accuracy through bf16x3 split products;
+csrc/flash_attention_bwd.cu, K7 for dQ).
 
 Counterpart of openhush_tpu/models/whisper/model.py:_attend_full, which runs
 the Pallas TPU flash kernel on the chip and the dense `_attend` elsewhere;
@@ -200,9 +202,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def _launch_backward(fn_name, q, k, v, do, lse, delta, dq=None, dk=None,
                      dv=None):
     """K6 (dk and dv given) or K7 (dq given); both entry points take the
-    strides of q, k, v, dO, dq, dk, dv in that order."""
+    strides of q, k, v, dO, dq, dk, dv in that order. K6 on fp32 inputs
+    also takes bf16 scratch for the three bf16 parts of q, k, v and dO."""
     B, H, Tq, D = q.shape
     grads = [g.data_ptr() for g in (dq, dk, dv) if g is not None]
+    if dk is not None:
+        planes = (torch.empty(6 * B * H * D * (Tq + k.shape[2]),
+                              dtype=torch.bfloat16, device=q.device)
+                  if q.dtype == torch.float32 else None)
+        grads.append(None if planes is None else planes.data_ptr())
     err = getattr(_build.library(), fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *grads, B, H, Tq, k.shape[2],
@@ -215,7 +223,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6: dk, dv [B, H, Tk, 64] (views of [B, Tk, H, 64] buffers) from q,
     k, v, the output gradient `do`, and the fp32 [B, H, Tq] residual `lse`
-    and `delta` = rowsum(o∘dO). CPU tensors take the plain version."""
+    and `delta` = rowsum(o∘dO). CPU tensors take the plain version. On the
+    card the four products run on the tensor cores, fp32 operands as the
+    sums of three bf16 parts (six partial products each, fp32 sums)."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta)
     _cuda_only("flash_attention_bwd_dkv", q)

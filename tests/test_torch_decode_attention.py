@@ -191,6 +191,19 @@ def test_int_lengths_and_none_match_tensor_lengths():
 FLT_MAX = torch.finfo(torch.float32).max
 
 
+def _model_scores(q3, k, ks):
+    """The kernels' scores [B, T, S, H]: ((dot * ks) * qscale) * sm_scale
+    with the int32 dot of the int8 levels, else (K . q) * sm_scale."""
+    B, S, _ = q3.shape
+    k4 = k.view(B, k.shape[1], H, D)
+    if k.dtype == torch.int8:
+        q8, qscale = da._quantize_query(q3, H)
+        return (torch.einsum("bthd,bshd->btsh", k4.float(), q8)
+                * ks[:, :, None, :] * qscale[:, None] * D ** -0.5)
+    return torch.einsum("bthd,bshd->btsh", k4.float(),
+                        q3.float().view(B, S, H, D)) * D ** -0.5
+
+
 def _k5_model(q3, k, v, lengths, C, ks=None, vs=None):
     """K5's arithmetic (csrc/decode_attention.cu, the cluster split) in
     PyTorch: rank r of a cluster of C takes keys [r*per, (r+1)*per) of the
@@ -201,14 +214,8 @@ def _k5_model(q3, k, v, lengths, C, ks=None, vs=None):
     attend_decode_plain's, m, l, pscale)."""
     B, S, HD = q3.shape
     T = k.shape[1]
-    k4, v4 = k.view(B, T, H, D), v.view(B, T, H, D)
-    if k.dtype == torch.int8:
-        q8, qscale = da._quantize_query(q3, H)
-        scores = (torch.einsum("bthd,bshd->btsh", k4.float(), q8)
-                  * ks[:, :, None, :] * qscale[:, None] * D ** -0.5)
-    else:
-        scores = torch.einsum("bthd,bshd->btsh", k4.float(),
-                              q3.float().view(B, S, H, D)) * D ** -0.5
+    v4 = v.view(B, T, H, D)
+    scores = _model_scores(q3, k, ks)
     n = lengths.clamp(max=T).long()
     per = (n + C - 1) // C
     t = torch.arange(T)[None, :]
@@ -303,6 +310,116 @@ def test_k5_cluster_split_model(kind, S, T, C):
     assert out.dtype == plain.dtype
     for other in (plain.float().numpy(), np.asarray(ref, np.float32)):
         np.testing.assert_allclose(out.float().numpy(), other, atol=1e-2)
+
+
+WARPS, LANES = 4, 32        # K4's CTA: 128 threads
+
+
+def _butterfly(x):
+    """Lane 0's value after `v += shfl_xor(v, off)` for off = n/2, ..., 1
+    over the n entries of x's first dimension."""
+    off = x.shape[0] // 2
+    while off:
+        x = x + x[torch.arange(x.shape[0]) ^ off]
+        off //= 2
+    return x[0]
+
+
+def _k4_model(q3, k, v, lengths, causal, ks=None, vs=None):
+    """K4's arithmetic (csrc/decode_attention.cu, decode_attention_kernel)
+    in PyTorch, with its order of sums. A pass holds RPP rows (128 threads,
+    16 bytes each: CHUNKS threads per row); warp w owns rows whose index
+    mod RPP lies in [w*RW, (w+1)*RW). For the softmax, lane i of a warp
+    takes its rows j = i, i+32, ... (row (j // RW)*RPP + w*RW + j % RW),
+    adds its exps in that order, and the lanes are joined by a butterfly of
+    shuffles, the warps in warp order; the max and (int8) max(p*vs) are
+    exact in any order. The value sum: each thread adds p*v over its rows
+    in pass order, the warp's RW rows join by a butterfly, the warps in
+    order (int32 in the int8 mode: exact). Returns (out, probs)."""
+    B, S, HD = q3.shape
+    T = k.shape[1]
+    v4 = v.view(B, T, H, D).float()
+    chunks = D // (16 // k.element_size())
+    rw, rpp = LANES // chunks, WARPS * LANES // chunks
+    scores = _model_scores(q3, k, ks)                       # [B, T, S, H]
+    quant = k.dtype == torch.int8
+    out = torch.zeros(B, S, H, D)
+    probs = torch.zeros(B, S, H, T)
+    for b in range(B):
+        for s in range(S):
+            n = min(int(lengths[b]) + (s if causal else 0), T)
+            kp = -(-n // rpp)
+            sc = scores[b, :n, s]                           # [n, H]
+            m = sc.amax(dim=0)
+            e = torch.exp(sc - m)
+            warp_rows = [[t for j in range(kp * rw)
+                          if (t := (j // rw) * rpp + w * rw + j % rw) < n]
+                         for w in range(WARPS)]
+            l = torch.zeros(H)
+            for rows in warp_rows:
+                lanes = torch.zeros(LANES, H)
+                for i, t in enumerate(rows):     # lane j % 32 of entry j
+                    lanes[i % LANES] += e[t]
+                l = l + _butterfly(lanes)
+            if quant:
+                pv = (e / l) * vs[b, :n]
+                pscale = torch.clamp(pv.amax(dim=0), min=1e-20) / 127.0
+                p = torch.clamp(torch.round(pv / pscale), -127, 127)
+                acc = torch.einsum("th,thd->hd", p.double(),
+                                   v4[b, :n].double())      # exact integers
+                out[b, s] = (acc.float() * pscale[:, None])
+            else:
+                p = (e / l).to(v.dtype).float()
+                part = torch.zeros(rpp, H, D)
+                for t in range(n):               # each thread, pass order
+                    part[t % rpp] += p[t, :, None] * v4[b, t]
+                for w in range(WARPS):
+                    out[b, s] += _butterfly(part[w * rw:(w + 1) * rw])
+            probs[b, s, :, :n] = p.T
+    return out.reshape(B, S, HD).to(q3.dtype), probs
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("S", [1, 3])
+def test_k4_warp_reduction_model(kind, S):
+    """K4's order of sums (each warp over its own rows, the warps joined
+    once per quantity), modelled in PyTorch, against `attend_decode_plain`
+    and the JAX decode step's `_attend_decode_flat` (S=1) /
+    `_attend_decode_flat_multi` (S=3, causal: query s sees len_b + s keys),
+    with per-row lengths. The file's tolerances: fp32 atol 2e-6, bf16 rtol
+    2^-7 with atol 2e-3, int8 atol 1e-5; int8 prob levels equal (no .5 tie
+    on these inputs)."""
+    B, T = 3, 96
+    causal = S > 1
+    q, k, v, ks, vs = _inputs(B, S, T, kind, seed=20 + S)
+    if kind == "bf16":
+        j = lambda a: jnp.asarray(a, jnp.bfloat16)
+        t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    else:
+        j, t = _j, _t
+    lens = np.array([T - 2, 40, 1], np.int32)
+    lengths = torch.from_numpy(lens)
+    args = (t(q), t(k), t(v), lengths, H)
+    out, p = _k4_model(*args[:4], causal, ks=_t(ks), vs=_t(vs))
+    plain, p_plain = da.attend_decode_plain(*args, ks=_t(ks), vs=_t(vs),
+                                            causal=causal, return_probs=True)
+    n = lens[:, None] + (np.arange(S)[None, :] if causal else 0)   # [B, S]
+    mask4 = np.arange(T)[None, None, :] < n[:, :, None]            # [B, S, T]
+    if S == 1:
+        ref = jax_model._attend_decode_flat(
+            j(q[:, 0]), j(k), j(v), jnp.asarray(mask4[:, 0]), H, ks=_j(ks),
+            vs=_j(vs))[:, None]
+    else:
+        ref = jax_model._attend_decode_flat_multi(
+            j(q), j(k), j(v), jnp.asarray(mask4[:, None]), H, ks=_j(ks),
+            vs=_j(vs))
+    tol = {"fp32": dict(atol=2e-6), "int8": dict(atol=1e-5),
+           "bf16": dict(rtol=2 ** -7, atol=2e-3)}[kind]
+    assert out.dtype == plain.dtype
+    if kind == "int8":
+        assert torch.equal(p, p_plain)
+    for other in (plain.float().numpy(), np.asarray(ref, np.float32)):
+        np.testing.assert_allclose(out.float().numpy(), other, **tol)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
