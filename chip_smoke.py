@@ -6,7 +6,8 @@ Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a;
      ptxas's registers and spills), and the count of wgmma instructions in
-     K2's bf16 kernel and in K6;
+     K2's bf16 and fp32 kernels, K6 and K7 (cuobjdump; a missing cuobjdump
+     fails the phase);
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
      (large-v3, one 30 s window; for the decode attention K4/K5, the
@@ -19,10 +20,11 @@ Phases, each printing its own lines and its seconds:
      its ring) and a bf16 one at batch 1, K5 at an odd head count (its
      one-head kernel) and on three causal queries, both timed at batch 1
      beside their bounds and checked in the TPU kernel's own function; the
-     encoder attention's backward kernels K6 (dK, dV; also at T=333 and
-     the same bits over two launches) and K7 (dQ) and K2's residual output
-     in fp32 and bf16, timed at the fine-tune's shape beside K2's fp32
-     bound and SDPA's fp32 forward;
+     encoder attention's backward kernels K6 (dK, dV) and K7 (dQ) and K2's
+     residual output in fp32 and bf16 (fp32 also at T=333, and the same
+     bits over two launches), timed at the fine-tune's shape beside their
+     tensor-core (bf16x3) and fp32 CUDA-core bounds, SDPA's fp32 forward
+     and backward, and the split pass that K6 and K7 share;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -463,10 +465,13 @@ def phase_flash_backward(fa, k2_row):
     at the large-v3 encoder's shapes (20 heads, T=1500, Dh=64, read through
     the strided [B, T, H*Dh] projection layout as encode() does): against
     their plain versions on the same inputs, in fp32 at the fine-tune
-    phase's shape (B=2) and in bf16 at B=1; then timed on the fp32 B=2
-    inputs that were checked, beside their bounds and the backward of SDPA
-    on the same inputs. K2's fp32 residual-mode time, its fp32 bound and
-    SDPA's fp32 forward on the same inputs go into K2's row (`k2_row`)."""
+    phase's shape (B=2) and at T=333, and in bf16 at B=1; in fp32 each
+    held to the same bits over two launches; then timed on the fp32 B=2
+    inputs that were checked, beside their bounds (on the tensor cores at
+    fp32 accuracy, and the fp32 CUDA cores'), the backward of SDPA on the
+    same inputs, and the split pass that K6 and K7 share. K2's fp32
+    residual-mode time, its plain version's, its bounds and SDPA's fp32
+    forward on the same inputs go into K2's row (`k2_row`)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 50)
     H, T, D = 20, 1500, 64
@@ -506,25 +511,38 @@ def phase_flash_backward(fa, k2_row):
         return (q, k, v, do, lse, delta), abs_errs
 
     compare(1, torch.bfloat16)
-    # K6 at a T that is not a multiple of its 128-key or 64-query tiles.
+    # K2's fp32 path, K6 and K7 at a T that is not a multiple of their
+    # 64- or 128-row tiles.
     x = [torch.randn(1, 333, H * D, generator=g, device=dev).view(
         1, 333, H, D).transpose(1, 2) for _ in range(4)]
     o, lse = fa.attend_lse(*x[:3])
+    ours = fa.flash_attention_lse(*x[:3])
+    errs = [(a - b).abs().max().item() for a, b in zip(ours, (o, lse))]
     rest = (x[3], lse, fa.delta_rows(o, x[3]))
-    rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in
-              zip(fa.flash_attention_bwd_dkv(*x[:3], *rest),
-                  fa.backward_dkv_plain(*x[:3], *rest)))
-    log(f"K6 (fp32, B=1, T=333): max_abs_err / max|plain| {rel:.3e} "
-        f"(tolerance 1e-4)")
-    check(rel <= 1e-4, "K6 fp32 T=333 vs plain")
+    rel = [(a - b).abs().max().item() / b.abs().max().item() for a, b in
+           zip((*fa.flash_attention_bwd_dkv(*x[:3], *rest),
+                fa.flash_attention_bwd_dq(*x[:3], *rest)),
+               (*fa.backward_dkv_plain(*x[:3], *rest),
+                fa.backward_dq_plain(*x[:3], *rest)))]
+    log(f"K2 residual mode (fp32, B=1, T=333): output max_abs_err "
+        f"{errs[0]:.3e}, lse {errs[1]:.3e} (tolerance 1e-4); K6/K7: "
+        f"max_abs_err / max|plain| dk {rel[0]:.3e}, dv {rel[1]:.3e}, dq "
+        f"{rel[2]:.3e} (tolerance 1e-4)")
+    check(max(errs) <= 1e-4, "K2 fp32 T=333 vs plain")
+    check(max(rel) <= 1e-4, "K6/K7 fp32 T=333 vs plain")
     # The fine-tune's shape, fp32: these inputs are checked, then timed, and
     # their errors are the kernels line's max_abs_err.
     B = 2
     args, abs_errs = compare(B, torch.float32)
-    first, again = (fa.flash_attention_bwd_dkv(*args) for _ in range(2))
-    check(all(torch.equal(a, b) for a, b in zip(first, again)),
-          "K6: the same bits over two launches")
-    log("  K6 (fp32, B=2): the same bits over two launches")
+    for name, fn, a in (("K2 residual mode", fa.flash_attention_lse, args[:3]),
+                        ("K6", fa.flash_attention_bwd_dkv, args),
+                        ("K7", fa.flash_attention_bwd_dq, args)):
+        first, again = fn(*a), fn(*a)
+        if torch.is_tensor(first):
+            first, again = (first,), (again,)
+        check(all(torch.equal(x, y) for x, y in zip(first, again)),
+              f"{name}: the same bits over two launches")
+        log(f"  {name} (fp32, B=2): the same bits over two launches")
     err_dkv = max(abs_errs["dk"], abs_errs["dv"])
     err_dq = abs_errs["dq"]
     q, k, v, do = args[:4]
@@ -535,16 +553,32 @@ def phase_flash_backward(fa, k2_row):
     elems = B * H * T * D * 4            # one fp32 [B, H, T, Dh] tensor
     rows_bytes = 2 * B * H * T * 4       # lse and delta
     k2_ms = time_ms(lambda: fa.flash_attention_lse(q, k, v))
+    k2_plain_ms = time_ms(lambda: fa.attend_lse(q, k, v))
     k2_sdpa_ms = time_ms(lambda: sdpa(q, k, v))
-    # Four fp32 [B, H, T, Dh] tensors and the lse moved; 2 T x T x Dh products.
-    k2_bound, k2_by = bound_ms(4 * elems + B * H * T * 4,
-                               4 * B * H * T * T * D, "fp32")
-    log(f"  K2 residual mode (fp32, B=2): {k2_ms:.4f} ms, bound "
-        f"{k2_bound:.4f} ms ({k2_by}), SDPA fp32 forward {k2_sdpa_ms:.4f} ms;"
-        f" inference mode "
-        f"{time_ms(lambda: fa.flash_attention(q, k, v)):.4f} ms")
+    # Four fp32 [B, H, T, Dh] tensors and the lse moved; 2 T x T x Dh
+    # products, each six bf16 products on the tensor cores at fp32 accuracy.
+    k2_bytes, k2_flops = 4 * elems + B * H * T * 4, 4 * B * H * T * T * D
+    k2_bound, k2_by = bound_ms(k2_bytes, 6 * k2_flops, "bf16")
+    k2_cc_bound = bound_ms(k2_bytes, k2_flops, "fp32")[0]
+    log(f"  K2 residual mode (fp32, B=2): {k2_ms:.4f} ms, plain "
+        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}, six bf16 "
+        f"partial products a product), fp32 CUDA-core bound "
+        f"{k2_cc_bound:.4f} ms, SDPA fp32 forward {k2_sdpa_ms:.4f} ms; "
+        f"inference mode {time_ms(lambda: fa.flash_attention(q, k, v)):.4f}"
+        f" ms")
     k2_row.update(fp32_residual_ms=k2_ms, fp32_residual_bound_ms=k2_bound,
+                  fp32_residual_cuda_core_bound_ms=k2_cc_bound,
+                  fp32_residual_plain_ms=k2_plain_ms,
                   fp32_residual_library_ms=k2_sdpa_ms)
+    # The split pass: alone, and what sharing it saves a backward (one
+    # split for K6 and K7 against one each).
+    planes = fa.split_planes(q, k, v, do)
+    check(torch.equal(planes, fa.split_planes_plain(q, k, v, do)),
+          "split pass vs plain")
+    log("  split pass of q, k, v, dO (fp32, B=2): the plain version's bits")
+    split_ms = time_ms(lambda: fa.split_planes(q, k, v, do))
+    shared_ms = {fn: time_ms(lambda: fn(*args, planes)) for fn in
+                 (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)}
     rows = []
     for name, fn, plain, wrt, n_out, n_mm, err, src in (
             ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
@@ -552,7 +586,7 @@ def phase_flash_backward(fa, k2_row):
              "flash_attention_bwd_tc.cu"),
             ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
              fa.backward_dq_plain, leaves[:1], 1, 3, err_dq,
-             "flash_attention_bwd.cu")):
+             "flash_attention_bwd_tc.cu")):
         # n_mm T x T x Dh products: S and dP recomputed, then dV and dK (K6)
         # or dQ (K7); each input read once, each output written once.
         n_bytes = (4 + n_out) * elems + rows_bytes
@@ -564,22 +598,25 @@ def phase_flash_backward(fa, k2_row):
                       + ("941" if n_out == 2 else "1287")),
             counter=fn, max_abs_err=err,
             ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: plain(*args)),
-            bound_ms=b, bound_by=by, library_ms=lib(wrt)))
-        if fn is fa.flash_attention_bwd_dkv:
-            # On the tensor cores each fp32 product is six bf16 products
-            # (three bf16 parts an operand): the least time for the same
-            # function at fp32 accuracy. The CUDA-core bound stays beside it.
-            rows[-1]["cuda_core_bound_ms"] = b
-            rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
-                n_bytes, 6 * flops, "bf16")
+            bound_ms=b, bound_by=by, library_ms=lib(wrt),
+            split_ms=split_ms, on_shared_planes_ms=shared_ms[fn]))
+        # On the tensor cores each fp32 product is six bf16 products (three
+        # bf16 parts an operand): the least time for the same function at
+        # fp32 accuracy. The CUDA-core bound stays beside it.
+        rows[-1]["cuda_core_bound_ms"] = b
+        rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+            n_bytes, 6 * flops, "bf16")
     for r in rows:
-        log(f"  {r['name']} (fp32, B=2): kernel {r['ms']:.4f} ms, plain "
+        log(f"  {r['name']} (fp32, B=2): kernel {r['ms']:.4f} ms (on a "
+            f"split it shares {r['on_shared_planes_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})"
-            + (f", fp32 CUDA-core bound {r['cuda_core_bound_ms']:.4f} ms"
-               if "cuda_core_bound_ms" in r else "")
-            + f", SDPA backward for the same gradients "
-            f"{r['library_ms']:.4f} ms")
+            f"({r['bound_by']}, six bf16 partial products a product), fp32 "
+            f"CUDA-core bound {r['cuda_core_bound_ms']:.4f} ms, SDPA "
+            f"backward for the same gradients {r['library_ms']:.4f} ms")
+    log(f"  split pass of q, k, v, dO (fp32, B=2): {split_ms:.4f} ms; one "
+        f"backward with a split each "
+        f"{rows[0]['ms'] + rows[1]['ms']:.4f} ms, with one split shared "
+        f"{split_ms + sum(shared_ms.values()):.4f} ms")
     return rows
 
 
@@ -610,7 +647,7 @@ def phase_train_tiny(train, weights, get_config, fa):
                               torch.float32, "cpu")
     batch = train_batch(cfg, 2, 24, SEED + 61)
     counters = (fa.flash_attention_lse, fa.flash_attention_bwd_dkv,
-                fa.flash_attention_bwd_dq)
+                fa.flash_attention_bwd_dq, fa.split_planes)
     out = {}
     for dev in ("cpu", "cuda"):
         for fn in counters:
@@ -633,9 +670,10 @@ def phase_train_tiny(train, weights, get_config, fa):
     check(all(math.isfinite(x) for x in l_gpu), "tiny training losses finite")
     check(loss_err <= 1e-4 and grad_err <= 1e-3, "tiny training card vs CPU")
     n = 4 * cfg.n_audio_layer          # value_and_grad, then 3 steps
-    check(all(fn.launches == n for fn in counters),
-          "the card ran K2 residual mode, K6 and K7 once per encoder layer "
-          "and step")
+    check(all(fn.launches == n for fn in counters[:3])
+          and fa.split_planes.launches == 2 * n,
+          "the card ran K2 residual mode, K6 and K7 once and the split pass "
+          "twice (forward, backward) per encoder layer and step")
 
 
 def phase_finetune(data, train, weights, get_config, fa, steps=5):
@@ -650,7 +688,7 @@ def phase_finetune(data, train, weights, get_config, fa, steps=5):
     from openhush_tpu_torch.audio.wav import save_wav
     cfg = get_config("large-v3")
     counters = (fa.flash_attention_lse, fa.flash_attention_bwd_dkv,
-                fa.flash_attention_bwd_dq)
+                fa.flash_attention_bwd_dq, fa.split_planes)
     with tempfile.TemporaryDirectory() as tmp:
         lines = []
         for i, (secs, text) in enumerate(((8.0, "the quick brown fox jumps "
@@ -705,8 +743,10 @@ def phase_finetune(data, train, weights, get_config, fa, steps=5):
     check(abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0]),
           "loss 2 equals loss 1 (lr 0 on the first update)")
     check(losses[-1] < losses[0], "the fine-tune loss fell")
-    check(all(c == n for c in launches.values()),
-          f"K2 residual mode, K6 and K7 ran {n} times (32 x steps)")
+    check(all(launches[fn.__name__] == n for fn in counters[:3])
+          and launches["split_planes"] == 2 * n,
+          f"K2 residual mode, K6 and K7 ran {n} times (32 x steps), the "
+          f"split pass {2 * n} (forward and backward)")
 
     # Where a step's time goes: one more step (not counted above), on a
     # fresh optimizer state, under a device-only trace.
@@ -726,10 +766,13 @@ def phase_finetune(data, train, weights, get_config, fa, steps=5):
             "time not measured")
     else:
         flash = sum(us for name, us in by_name.items() if "flash" in name)
+        split = sum(us for name, us in by_name.items()
+                    if "split_planes" in name)
         log(f"  traced step: {traced * 1e3:.1f} ms wall, device busy "
             f"{busy / 1e3:.1f} ms, device idle share "
             f"{1 - busy / 1e6 / traced:.3f}; flash kernels (K2, K6, K7) "
-            f"{flash / 1e3:.1f} ms = {flash / busy:.1%}")
+            f"{flash / 1e3:.1f} ms = {flash / busy:.1%}, their split pass "
+            f"{split / 1e3:.1f} ms = {split / busy:.1%}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
     del params, state, opt
@@ -1056,24 +1099,34 @@ def phase_cli():
     log(json.dumps(data))
 
 
+# The tensor-core kernels, by their mangled names' kernel and template
+# arguments: K2 in bf16 (NP = 1) and fp32 (NP = 3), K6 and K7 in fp32.
+TC_KERNELS = {
+    "K2 bf16": "25flash_attention_tc_kernelILi1E",
+    "K2 fp32": "25flash_attention_tc_kernelILi3E",
+    "K6 fp32": "23flash_bwd_dkv_tc_kernelIfLi3E",
+    "K7 fp32": "22flash_bwd_dq_tc_kernelIfLi3E",
+}
+
+
 def phase_sass(so, nvcc: str) -> None:
-    """K2's bf16 kernel and K6 run on the tensor cores: count each one's
-    warpgroup MMA instructions (HGMMA) in the built library's SASS, by the
-    toolkit's cuobjdump, and fail if either has none."""
+    """K2 (bf16 and fp32), K6 and K7 run on the tensor cores: count each
+    one's warpgroup MMA instructions (HGMMA) in the built library's SASS,
+    by the toolkit's cuobjdump, and fail if one has none or if cuobjdump is
+    missing."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.path.exists(cuobjdump):
-        log(f"  {cuobjdump} not found: the SASS not inspected")
-        return
+    check(os.path.exists(cuobjdump), f"{cuobjdump} exists (the SASS check)")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    kernels = {"flash_attention_tc_kernel": 0, "flash_bwd_dkv_tc_kernel": 0}
+    counts = dict.fromkeys(TC_KERNELS, 0)
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((k for k in kernels if k in line), None)
+            current = next((k for k, name in TC_KERNELS.items()
+                            if name in line), None)
         elif current is not None and "HGMMA" in line:
-            kernels[current] += 1
-    for name, count in kernels.items():
+            counts[current] += 1
+    for name, count in counts.items():
         log(f"  {name} SASS: {count} HGMMA (wgmma) instructions")
         check(count > 0, f"{name} on the tensor cores (HGMMA in its SASS)")
 
@@ -1170,10 +1223,17 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
         for key in ("batch1_ms", "batch1_bound_ms", "cuda_core_bound_ms",
-                    "fp32_residual_ms",
-                    "fp32_residual_bound_ms", "fp32_residual_library_ms"):
+                    "split_ms", "on_shared_planes_ms", "fp32_residual_ms",
+                    "fp32_residual_bound_ms",
+                    "fp32_residual_cuda_core_bound_ms",
+                    "fp32_residual_plain_ms", "fp32_residual_library_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
+        if "fp32_residual_ms" in r:
+            kernels[-1]["fp32_residual_launches"] = launches[
+                "flash_attention_lse"]
+        if "split_ms" in r:
+            kernels[-1]["split_launches"] = launches["split_planes"]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

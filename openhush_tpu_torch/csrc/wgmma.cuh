@@ -1,5 +1,5 @@
-// Building blocks of the tensor-core kernels (K2's bf16 path in
-// flash_attention_tc.cu, K6 in flash_attention_bwd_tc.cu): 4-D bf16 tensor
+// Building blocks of the tensor-core kernels (K2 in flash_attention_tc.cu,
+// K6 and K7 in flash_attention_bwd_tc.cu): 4-D bf16 tensor
 // maps over [B, H, T, 64] operands given by their strides, TMA tile loads,
 // wgmma shared-memory descriptors in the 128-byte swizzle, and the
 // m64n64k16 bf16 -> fp32 warpgroup products.

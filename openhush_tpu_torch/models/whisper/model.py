@@ -312,9 +312,9 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     `cache` in place.
 
     `pos` is an int (every row at the same offset: one-shot decode) or an
-    integer [B] tensor (continuous batching: every slot at its own offset;
-    S·H ≤ 128 only). Cache key j is visible to a row iff j < its pos, plus
-    the new keys causally.
+    integer [B] tensor (continuous batching: every slot at its own offset).
+    Cache key j is visible to a row iff j < its pos, plus the new keys
+    causally.
 
     Returns (logits [B, S, n_vocab_padded] fp32, the cache)."""
     if cross_group != 1:
@@ -344,23 +344,25 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
 
     if S * n_head <= 128:
         return _decode_flat_ro(cfg, params, x, pos, cache, cross_kv)
-    if per_row:
-        raise NotImplementedError("per-row positions take the flat path "
-                                  "only (S·H <= 128), as in the reference")
 
     # Long prefill (S·H > 128): write the block into the cache, then attend
-    # over the head views with a causal mask.
-    key_idx = torch.arange(max_len, device=x.device)[None, :]
-    q_idx = torch.arange(S, device=x.device)[:, None]
-    self_mask = (key_idx <= pos + q_idx)[None, None]      # [1, 1, S, T]
+    # over the head views with a causal mask, per row. The reference's
+    # dynamic_update_slice clamps each row's start to max_len - S; the mask
+    # keeps the unclamped pos.
+    row_pos = pos if per_row else torch.full((B,), pos, device=x.device)
+    q_idx = torch.arange(S, device=x.device)
+    self_mask = (torch.arange(max_len, device=x.device)
+                 <= (row_pos[:, None] + q_idx)[..., None])[:, None]
+    rows = row_pos.clamp(max=max_len - S)[:, None] + q_idx     # [B, S]
+    batch = torch.arange(B, device=x.device)[:, None]
     dh = cfg.n_text_state // n_head
 
     for l, lp in enumerate(_layers(dec["layers"])):
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
         q = h @ lp["q_w"] + lp["q_b"]                    # [B, S, HD]
-        cache.k[l, :, pos:pos + S] = (h @ lp["k_w"]).to(cache.k.dtype)
-        cache.v[l, :, pos:pos + S] = (h @ lp["v_w"] + lp["v_b"]
-                                      ).to(cache.v.dtype)
+        cache.k[l][batch, rows] = (h @ lp["k_w"]).to(cache.k.dtype)
+        cache.v[l][batch, rows] = (h @ lp["v_w"] + lp["v_b"]
+                                   ).to(cache.v.dtype)
         attn = _attend_views(
             q.view(B, S, n_head, dh),
             cache.k[l].view(B, max_len, n_head, dh),

@@ -36,11 +36,13 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # cudaError_t as int (0 = launched).
 SIGNATURES = {
     "oh_log_mel": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
-    "oh_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           ctypes.POINTER(_LL), _F, _I, _P],
+    "oh_flash_attention": [_P] * 6 + [_I] * 4
+                          + [ctypes.POINTER(_LL), _F, _I, _P],
+    "oh_flash_attention_split": [_P] * 5 + [_I] * 4
+                                + [ctypes.POINTER(_LL), _P],
     "oh_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 4
                                   + [ctypes.POINTER(_LL), _F, _I, _P],
-    "oh_flash_attention_bwd_dq": [_P] * 7 + [_I] * 4
+    "oh_flash_attention_bwd_dq": [_P] * 8 + [_I] * 4
                                  + [ctypes.POINTER(_LL), _F, _I, _P],
     "oh_quantize_heads": [_P, _P, _P, _LL, _I, _I, _P],
     "oh_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,

@@ -1,8 +1,10 @@
 """Encoder self-attention on the hand-written CUDA flash kernels, forward
-(csrc/flash_attention.cu and, for bf16, csrc/flash_attention_tc.cu: K2) and
-backward (csrc/flash_attention_bwd_tc.cu, K6 for dK and dV, on the tensor
-cores at fp32 accuracy through bf16x3 split products;
-csrc/flash_attention_bwd.cu, K7 for dQ).
+(csrc/flash_attention_tc.cu: K2) and backward (csrc/flash_attention_bwd_tc.cu:
+K6 for dK and dV, K7 for dQ), all on the tensor cores. fp32 inputs keep
+fp32 accuracy there through bf16x3 split products: a split pass
+(csrc/flash_split.cu, `split_planes`) writes each fp32 operand's three bf16
+parts as planes, and every product is six bf16 partial products with fp32
+sums (never plain TF32).
 
 Counterpart of openhush_tpu/models/whisper/model.py:_attend_full, which runs
 the Pallas TPU flash kernel on the chip and the dense `_attend` elsewhere;
@@ -17,7 +19,8 @@ backward's plain version, an explicit formula (`backward_dkv_plain` and
 which autograd differentiates. On CUDA tensors it launches K2, and when a
 gradient is wanted it goes through `FlashAttention`, an autograd Function
 whose forward launches K2 in residual mode and whose backward launches K6
-and K7: a kernel or an error, never a fallback.
+and K7 on one shared split of q, k, v and dO: a kernel or an error, never a
+fallback.
 """
 
 from __future__ import annotations
@@ -153,14 +156,80 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _n_plane_elems(q, k, do) -> int:
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    return 3 * B * H * D * (Tq + 2 * Tk + (Tq if do is not None else 0))
+
+
+def split_planes_plain(q, k, v, do=None) -> torch.Tensor:
+    """The split pass's plain version: each fp32 operand x as three bf16
+    parts, x = hi + mid + lo, each the bf16 rounding of what the earlier
+    parts leave; operand [B, H, T, 64] becomes planes [3 * B, H, T, 64]
+    (part p of batch row b is row b + p * B), and q's, k's, v's and dO's
+    planes follow one another in one flat buffer."""
+    out = []
+    for x in (q, k, v) + (() if do is None else (do,)):
+        hi = x.to(torch.bfloat16)
+        r = x - hi.float()
+        mid = r.to(torch.bfloat16)
+        lo = (r - mid.float()).to(torch.bfloat16)
+        out.append(torch.stack((hi, mid, lo)).reshape(-1))
+    return torch.cat(out)
+
+
+def split_planes(q, k, v, do=None) -> torch.Tensor | None:
+    """The split pass of the fp32 kernels (csrc/flash_split.cu): the three
+    bf16 parts of fp32 q, k, v and, for the backward, dO, as one flat bf16
+    buffer of contiguous planes, which K2 (q, k, v) and K6 and K7 (all
+    four) read instead of the fp32 tensors (`split_planes_plain` has the
+    layout). None for bf16 inputs, which the kernels read in place. CPU
+    tensors take the plain version."""
+    if q.dtype != torch.float32:
+        return None
+    if q.device.type == "cpu":
+        return split_planes_plain(q, k, v, do)
+    _cuda_only("split_planes", q)
+    _check("split_planes", q, k, v, *(() if do is None else (do,)))
+    B, H, Tq, _ = q.shape
+    planes = torch.empty(_n_plane_elems(q, k, do), dtype=torch.bfloat16,
+                         device=q.device)
+    err = _build.library().oh_flash_attention_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if do is None else do.data_ptr(), planes.data_ptr(), B, H, Tq,
+        k.shape[2], _strides(q, k, v, do), _stream(q))
+    _build.check(err, "oh_flash_attention_split")
+    split_planes.launches += 1
+    return planes
+
+
+def _planes_for(name, q, k, v, do, planes):
+    """`planes` checked against the inputs, or made by `split_planes` when
+    not given; None for bf16."""
+    if q.dtype != torch.float32:
+        return None
+    if planes is None:
+        return split_planes(q, k, v, do)
+    if planes.dtype != torch.bfloat16 or planes.device != q.device \
+            or planes.numel() != _n_plane_elems(q, k, do):
+        raise ValueError(f"{name}: planes must be split_planes' buffer for "
+                         f"these inputs")
+    return planes
+
+
 def _launch_forward(q, k, v, lse):
     B, H, Tq, D = q.shape
     out = _heads_like(q, Tq)
+    planes = _planes_for("oh_flash_attention", q, k, v, None, None)
     err = _build.library().oh_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, Tq, k.shape[2],
-        _strides(q, k, v, out), D ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if lse is None else lse.data_ptr(),
+        None if planes is None else planes.data_ptr(), B, H, Tq, k.shape[2],
+        _strides(q, k, v, out), D ** -0.5, _DTYPES[q.dtype], _stream(q))
     _build.check(err, "oh_flash_attention")
     return out
 
@@ -199,33 +268,31 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out, lse
 
 
-def _launch_backward(fn_name, q, k, v, do, lse, delta, dq=None, dk=None,
-                     dv=None):
+def _launch_backward(fn_name, q, k, v, do, lse, delta, planes, dq=None,
+                     dk=None, dv=None):
     """K6 (dk and dv given) or K7 (dq given); both entry points take the
-    strides of q, k, v, dO, dq, dk, dv in that order. K6 on fp32 inputs
-    also takes bf16 scratch for the three bf16 parts of q, k, v and dO."""
+    strides of q, k, v, dO, dq, dk, dv in that order, and for fp32 inputs
+    the split pass's planes of q, k, v and dO."""
     B, H, Tq, D = q.shape
+    planes = _planes_for(fn_name, q, k, v, do, planes)
     grads = [g.data_ptr() for g in (dq, dk, dv) if g is not None]
-    if dk is not None:
-        planes = (torch.empty(6 * B * H * D * (Tq + k.shape[2]),
-                              dtype=torch.bfloat16, device=q.device)
-                  if q.dtype == torch.float32 else None)
-        grads.append(None if planes is None else planes.data_ptr())
     err = getattr(_build.library(), fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *grads, B, H, Tq, k.shape[2],
+        lse.data_ptr(), delta.data_ptr(), *grads,
+        None if planes is None else planes.data_ptr(), B, H, Tq, k.shape[2],
         _strides(q, k, v, do, dq, dk, dv), D ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _build.check(err, fn_name)
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, planes=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6: dk, dv [B, H, Tk, 64] (views of [B, Tk, H, 64] buffers) from q,
     k, v, the output gradient `do`, and the fp32 [B, H, Tq] residual `lse`
     and `delta` = rowsum(o∘dO). CPU tensors take the plain version. On the
     card the four products run on the tensor cores, fp32 operands as the
-    sums of three bf16 parts (six partial products each, fp32 sums)."""
+    sums of three bf16 parts (six partial products each, fp32 sums):
+    `planes` is `split_planes(q, k, v, do)`, made here when not given."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta)
     _cuda_only("flash_attention_bwd_dkv", q)
@@ -233,14 +300,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta
     _check_rows("flash_attention_bwd_dkv", q, lse, delta)
     dk, dv = _heads_like(k, k.shape[2]), _heads_like(v, v.shape[2])
     _launch_backward("oh_flash_attention_bwd_dkv", q, k, v, do, lse, delta,
-                     dk=dk, dv=dv)
+                     planes, dk=dk, dv=dv)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, planes=None
+                           ) -> torch.Tensor:
     """K7: dq [B, H, Tq, 64] (a view of a [B, Tq, H, 64] buffer) from the
-    same inputs as K6. CPU tensors take the plain version."""
+    same inputs as K6, on the tensor cores as K6 is (the same `planes`).
+    CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta)
     _cuda_only("flash_attention_bwd_dq", q)
@@ -248,7 +317,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     _check_rows("flash_attention_bwd_dq", q, lse, delta)
     dq = _heads_like(q, q.shape[2])
     _launch_backward("oh_flash_attention_bwd_dq", q, k, v, do, lse, delta,
-                     dq=dq)
+                     planes, dq=dq)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -256,7 +325,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: forward on K2 in residual mode,
     backward on K6 (dk, dv) and K7 (dq), with D = rowsum(o∘dO) in PyTorch
-    between them. On CPU tensors the wrappers take their plain versions."""
+    between them and one split pass of q, k, v and dO for both (fp32). On
+    CPU tensors the wrappers take their plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -270,8 +340,9 @@ class FlashAttention(torch.autograd.Function):
         if not _aligned(do, 16 // do.element_size()):
             do = do.contiguous()     # e.g. an expanded gradient of a sum
         delta = delta_rows(out, do)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        planes = split_planes(q, k, v, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, planes)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, planes)
         return dq, dk, dv
 
 
@@ -279,3 +350,4 @@ flash_attention.launches = 0
 flash_attention_lse.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+split_planes.launches = 0

@@ -35,6 +35,8 @@ from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
 from openhush_tpu_torch.ops import frontend, mel as mel_ops
 from openhush_tpu_torch.runtime import validation
 from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+from openhush_tpu_torch.utils.quant_flags import (int8_encoder_enabled,
+                                                  int8_rung_enabled)
 
 # Temperature fallback schedule + acceptance thresholds (whisper defaults,
 # the same heuristics whisper.cpp replicates). OPENHUSH_NO_FALLBACK=1
@@ -142,6 +144,36 @@ def default_model_dir() -> str:
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _refuse_unported(quantize_weights, quantize_encoder, draft_model):
+    """Resolve the int8 and draft switches as the reference's engine does
+    (openhush_tpu/runtime/engine.py:189-213, 228-234), and raise at the
+    first one that is on: the port has not ported those modes yet.
+    quantize_weights: the argument, else OPENHUSH_INT8_WEIGHTS (a hard
+    switch both ways), else the int8 rung; quantize_encoder: the argument,
+    else int8_encoder_enabled(); draft_model: the argument, else
+    OPENHUSH_DRAFT_MODEL."""
+    if quantize_weights is None:
+        env_w = os.environ.get("OPENHUSH_INT8_WEIGHTS")
+        quantize_weights = (env_w == "1" if env_w is not None
+                            else int8_rung_enabled())
+    if quantize_weights:
+        raise NotImplementedError(
+            "quantize_weights (int8 decoder weights: the argument, "
+            "OPENHUSH_INT8_WEIGHTS, OPENHUSH_INT8_RUNG or int8_rung.ok) is "
+            "not ported yet (ROADMAP A3)")
+    if quantize_encoder is None:
+        quantize_encoder = int8_encoder_enabled()
+    if quantize_encoder:
+        raise NotImplementedError(
+            "quantize_encoder (the W8A8 encoder: the argument, "
+            "OPENHUSH_INT8_ENCODER or int8_encoder.ok) is not ported yet "
+            "(ROADMAP A3)")
+    if draft_model or os.environ.get("OPENHUSH_DRAFT_MODEL"):
+        raise NotImplementedError(
+            "draft_model (speculative decoding: the argument or "
+            "OPENHUSH_DRAFT_MODEL) is not ported yet (ROADMAP A5)")
+
+
 class WhisperEngine:
     """One loaded Whisper model on one device.
 
@@ -160,11 +192,7 @@ class WhisperEngine:
                  quantize_encoder: Optional[bool] = None,
                  draft_model: Optional[str] = None,
                  params=None, device=None):
-        for name, value in (("quantize_weights", quantize_weights),
-                            ("quantize_encoder", quantize_encoder),
-                            ("draft_model", draft_model)):
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet")
+        _refuse_unported(quantize_weights, quantize_encoder, draft_model)
         self.device = resolve_device(device)
         self.cfg = get_config(model)
         self.model_name = model

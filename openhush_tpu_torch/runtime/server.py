@@ -38,7 +38,10 @@ from openhush_tpu_torch.models.whisper import decoding, model as whisper
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.ops import frontend, mel as mel_ops
 from openhush_tpu_torch.runtime import batcher
+from openhush_tpu_torch.runtime.engine import default_model_dir
 from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+from openhush_tpu_torch.utils.quant_flags import (SELF_CACHE_MARKER,
+                                                  int8_rung_enabled)
 
 log = logging.getLogger(__name__)
 
@@ -170,12 +173,23 @@ class EngineServer:
                  deep_factor: int = 4,
                  reserve_first_window: Optional[bool] = None):
         if draft is not None:
-            raise NotImplementedError("speculative serving (draft=) is not "
-                                      "ported yet")
+            raise NotImplementedError("draft (speculative serving) is not "
+                                      "ported yet (ROADMAP A5)")
         if int8_self_cache is None:
-            int8_self_cache = os.environ.get("OPENHUSH_INT8_SELF_CACHE") == "1"
+            # As the reference's server (server.py:253-267): the variable
+            # when set, else the combined int8 rung or the self-cache's own
+            # checkpoint-gate marker.
+            env = os.environ.get("OPENHUSH_INT8_SELF_CACHE")
+            if env is not None:
+                int8_self_cache = env == "1"
+            else:
+                int8_self_cache = (int8_rung_enabled() or os.path.exists(
+                    os.path.join(default_model_dir(), SELF_CACHE_MARKER)))
         if int8_self_cache:
-            raise NotImplementedError("the int8 self-cache is not ported yet")
+            raise NotImplementedError(
+                "int8_self_cache (the argument, OPENHUSH_INT8_SELF_CACHE, "
+                "OPENHUSH_INT8_RUNG, int8_rung.ok or int8_self_cache.ok) is "
+                "not ported yet (ROADMAP A3)")
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params)

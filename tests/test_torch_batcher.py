@@ -131,10 +131,19 @@ def test_per_row_write_drops_past_max_len(weights_pair, cross_pair):
     assert bool((cache.k[:, 0, :6] == 1.0).all())     # row 0: 6, 7 written
     assert bool((cache.k[:, 0, 6:] != 1.0).all())
     assert bool((cache.k[:, 1, 2:5] != 1.0).all())    # row 1: 2..4
-    with pytest.raises(NotImplementedError):
-        model.decode(CFG, params, torch.zeros(2, 80, dtype=torch.int64),
-                     torch.zeros(2, dtype=torch.int64),
-                     model.init_kv_cache(CFG, 2, torch.float32, 96), kv)
+    # Per-row pos on the long prefill (S·H > 128) is ported: rows at one
+    # offset give what the shared offset gives (JAX parity in
+    # test_torch_decoder.py).
+    toks = torch.zeros(2, 80, dtype=torch.int64)
+    with torch.no_grad():
+        per_row, c1 = model.decode(
+            CFG, params, toks, torch.zeros(2, dtype=torch.int64),
+            model.init_kv_cache(CFG, 2, torch.float32, 96), kv)
+        shared, c2 = model.decode(
+            CFG, params, toks, 0,
+            model.init_kv_cache(CFG, 2, torch.float32, 96), kv)
+    assert torch.equal(per_row, shared)
+    assert torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v)
 
 
 def test_admit_step_matches_jax_batcher(weights_pair, cross_pair):

@@ -1,7 +1,8 @@
 """Port decoder (openhush_tpu_torch.models.whisper.model.decode) against JAX
 `decode` on the same weights and the same cross-KV, fp and int8, in the
 three branches of the main path: the S=1 step and the short prefill (S=3)
-of `_decode_flat_ro`, and the long prefill (S=80, S·H > 128) on head views.
+of `_decode_flat_ro`, and the long prefill (S=80, S·H > 128) on head views,
+at one shared pos and at per-row pos (S=70).
 
 Both sides get the SAME cross-KV arrays (JAX's, carried over), so the int8
 cases compare attention and not quantization. fp32 weights throughout.
@@ -84,6 +85,44 @@ def test_decode_matches_jax(setup, kind, S, steps):
             np.testing.assert_allclose(a.numpy()[:, :, :pos],
                                        np.asarray(b)[:, :, :pos], atol=1e-5)
             assert float(a[:, :, pos:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+def test_long_prefill_per_row_pos_matches_jax(setup, kind):
+    """The long prefill (S·H > 128: S = 70 on 2 heads) with per-row `pos`
+    over a cache that already holds rows: the per-row causal mask and the
+    per-row cache writes. Row 1's pos + S passes max_len, so its write
+    starts at max_len - S (JAX's dynamic_update_slice clamps the start;
+    the mask keeps the unclamped pos)."""
+    jparams, params, _, xkv = setup
+    rng = np.random.default_rng(70)
+    B, S, max_len = 2, 70, 96
+    pos = np.array([5, 40], np.int32)
+    assert S * CFG.n_text_head > 128 and pos[1] + S > max_len
+    shape = (CFG.n_text_layer, B, max_len, CFG.n_text_state)
+    k0, v0 = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    toks = rng.integers(0, 50257, (B, S)).astype(np.int32)
+    jl, jcache = _decode_jit(CFG, jparams, jnp.asarray(toks),
+                             jnp.asarray(pos), jax_model.KVCache(
+                                 jnp.asarray(k0), jnp.asarray(v0)),
+                             xkv[kind])
+    cache = model.KVCache(torch.from_numpy(k0.copy()),
+                          torch.from_numpy(v0.copy()))
+    with torch.no_grad():
+        tl, cache = model.decode(CFG, params, torch.from_numpy(toks).long(),
+                                 torch.from_numpy(pos), cache,
+                                 _port_cross(xkv[kind]))
+    jl = np.asarray(jl)
+    assert tl.shape == jl.shape == (B, S, CFG.n_vocab_padded)
+    np.testing.assert_allclose(tl.numpy()[..., :CFG.n_vocab],
+                               jl[..., :CFG.n_vocab], atol=LOGIT_ATOL)
+    for a, b in ((cache.k, jcache.k), (cache.v, jcache.v)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    # Rows before each write are untouched; row 1 was written from 26 on.
+    np.testing.assert_array_equal(cache.k.numpy()[:, 0, :5], k0[:, 0, :5])
+    np.testing.assert_array_equal(cache.k.numpy()[:, 1, :max_len - S],
+                                  k0[:, 1, :max_len - S])
 
 
 def test_single_step_after_prefill_int8(setup):
