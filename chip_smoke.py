@@ -13,7 +13,12 @@ Phases, each printing its own lines and its seconds:
      (large-v3, one 30 s window; for the decode attention K4/K5, the
      serving step at 8 slots), with its time, the plain version's, the
      least time the card could take (bound) and, where one PyTorch call
-     computes the same function, that call's time; K2 in bf16 also at
+     computes the same function, that call's time; K1's log10 energies
+     before the clamp also at batch 2, at 80 mels, at 1500 frames and, on a
+     tone over near silence, against float64 sums; K3 through its K+V entry
+     (one launch a layer, into a slice of stacked buffers) and on one
+     tensor, timed both ways, also in fp32 and at head dims of 32, 80 and
+     128; K2 in bf16 also at
      batch 2, at a T that is not a multiple of its tiles and on contiguous
      heads; K4 and K5 are each held to themselves bit for bit over two
      launches, K4 checked on an fp32 cache of 448 rows (streamed through
@@ -148,9 +153,114 @@ def speechlike(secs: float, seed: int) -> np.ndarray:
     return (x + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
+def tone_over_silence(secs: float = 30.0) -> torch.Tensor:
+    """A 440 Hz tone for the first half, then noise 90 dB below it: in the
+    tone's frames the low mel bins lie up to 12 decades under the frame's
+    peak, where the DFT's sums cancel."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    t = torch.arange(int(16000 * secs)) / 16000
+    x = 0.5 * torch.sin(2 * torch.pi * 440 * t)
+    half = x.numel() // 2
+    x[half:] = 1e-5 * torch.randn(x.numel() - half, generator=g)
+    return x
+
+
+def log_mel_energies_f64(mel, audio, n_mels: int, n_frames: int):
+    """mel.log_mel_energies in float64 on the card: the bases and filter
+    bank as stored (fp32), every sum in float64."""
+    cos_b, sin_b = (torch.from_numpy(b).to(audio.device, torch.float64)
+                    for b in mel._dft_bases())
+    fb = torch.from_numpy(mel.mel_filter_bank(n_mels)).to(audio.device,
+                                                          torch.float64)
+    frames = mel.frame_signal(mel.reflect_pad(audio), n_frames).double()
+    power = (frames @ cos_b) ** 2 + (frames @ sin_b) ** 2
+    return torch.log10(torch.clamp(power @ fb, min=1e-10)).float()
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def check_k1_energies(frontend, mel) -> None:
+    """K1's log10 energies before the clamp (which the normalized check
+    hides) against the plain version's at B=2, at 80 mels and at 1500
+    frames (a reduced audio_ctx), and on a tone over near silence against
+    float64 sums."""
+    dev = torch.device("cuda")
+    n_frames, n_mels = mel.N_FRAMES, 128
+    # fp32 sums in two orders differ by up to ~1e-3 in bins 8 decades and
+    # more under the window's peak.
+    tol_e = 2e-3
+    for B, nf, nm in ((2, n_frames, n_mels), (1, n_frames, 80),
+                      (1, n_frames // 2, n_mels)):
+        a = torch.cat([torch.from_numpy(speechlike(30.0, SEED + 30 + b))[None]
+                       for b in range(B)]).to(dev)
+        e = (frontend.log_mel_energies(a, nm, nf)
+             - mel.log_mel_energies(a, nm, nf)).abs().max().item()
+        log(f"  K1 log10 energies (before the clamp), B={B}, {nm} mels, {nf} "
+            f"frames: max_abs_err {e:.3e} (tolerance {tol_e})")
+        check(e <= tol_e, f"K1 energies B={B} mels={nm} frames={nf}")
+    # A tone over near silence, against float64 sums: in every bin within 8
+    # decades of its frame's peak (all of the quiet frames, whose every bin
+    # the normalized check clamps). Deeper bins are fp32 rounding noise in
+    # any order (up to 0.1 in log10 for the plain version too).
+    tone = tone_over_silence()[None].to(dev)
+    ref = log_mel_energies_f64(mel, tone, n_mels, n_frames)
+    keep = ref > ref.amax(dim=-1, keepdim=True) - 8
+    ours = frontend.log_mel_energies(tone, n_mels, n_frames)
+    plain = mel.log_mel_energies(tone, n_mels, n_frames)
+    e64, ep64, ep = ((x - y).abs()[keep].max().item()
+                     for x, y in ((ours, ref), (plain, ref), (ours, plain)))
+    log(f"  K1 tone over near silence, log10 energies within 8 decades of "
+        f"the frame's peak ({int(keep.sum())} of {keep.numel()} bins): "
+        f"kernel vs float64 {e64:.3e} (plain {ep64:.3e}; tolerance {tol_e}), "
+        f"kernel vs plain {ep:.3e} (tolerance {1.5 * tol_e}); all bins "
+        f"kernel vs plain {(ours - plain).abs().max().item():.3e}")
+    check(e64 <= tol_e and ep <= 1.5 * tol_e, "K1 tone over near silence")
+
+
+# K3's shapes besides the main path's: (dtype, B, T, heads, head_dim); a
+# head of 32, 64 and 128 values fills 4, 8 and 16 lanes (bf16) or 8, 16 and
+# 32 (fp32); one of 80 fills 10 lanes of 16 (bf16) or 20 of 32 (fp32).
+K3_SHAPES = ((torch.float32, 2, 333, 20, 64), (torch.bfloat16, 2, 333, 2, 32),
+             (torch.float32, 2, 333, 6, 128), (torch.bfloat16, 2, 333, 16, 128),
+             (torch.bfloat16, 2, 333, 16, 80), (torch.float32, 2, 333, 16, 80))
+
+
+def check_k3(quantize, k, v, n_head):
+    """quantize_heads_kv of k and v into slice 1 of stacked [2, ...] buffers
+    (slice 0 must stay as it was), and quantize_heads of k alone, against
+    quantize_heads_plain: scales exact, int8 levels at most 1 apart on at
+    most 1e-3 of the elements (.5 ties). Returns the K+V outputs (the
+    slices) and the largest level error."""
+    shape, dev = k.shape, k.device
+    stacked = [torch.full((2, *shape), 7, dtype=torch.int8, device=dev),
+               torch.full((2, *shape[:2], n_head), 7.0, device=dev),
+               torch.full((2, *shape), 7, dtype=torch.int8, device=dev),
+               torch.full((2, *shape[:2], n_head), 7.0, device=dev)]
+    out = tuple(t[1] for t in stacked)
+    quantize.quantize_heads_kv(k, v, n_head, out)
+    one = quantize.quantize_heads(k, n_head)
+    torch.cuda.synchronize()
+    check(all(bool((t[0] == 7).all()) for t in stacked),
+          "K3 K+V left the other layer's slice as it was")
+    what = f"{k.dtype} {list(shape)}, {n_head} heads"
+    err = 0
+    for label, x, (q, s) in (("K", k, out[:2]), ("V", v, out[2:]),
+                             ("one tensor", k, one)):
+        qp, sp = quantize.quantize_heads_plain(x, n_head)
+        s_err = (s - sp).abs().max().item()
+        dq = (q.int() - qp.int()).abs()
+        frac = dq.ne(0).float().mean().item()
+        log(f"K3 quantize_heads{'' if label == 'one tensor' else '_kv'} "
+            f"({label}, {what}): scales max_abs_err {s_err:.3e} (tolerance "
+            f"0), int8 levels max_abs_err {dq.max().item()} on {frac:.2e} of "
+            f"elements (tolerance 1 level on <= 1e-3: .5 ties)")
+        check(s_err == 0 and dq.max().item() <= 1 and frac <= 1e-3,
+              f"K3 quantize vs plain ({label}, {what})")
+        err = max(err, dq.max().item())
+    return out, err
 
 
 def phase_kernels(frontend, flash_attention, quantize, mel):
@@ -158,7 +268,9 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
     dev = torch.device("cuda")
     rows = []
 
-    # K1: log-mel of one 30 s window, 128 mels (large-v3), fp32.
+    # K1: log-mel of one 30 s window, 128 mels (large-v3), fp32: the
+    # normalized features, then the log10 energies before the clamp at B=2,
+    # at 80 mels and at 1500 frames (a reduced audio_ctx).
     audio = torch.from_numpy(speechlike(30.0, SEED))[None].to(dev)
     n_frames, n_mels = mel.N_FRAMES, 128
     ours = frontend.log_mel(audio, n_mels)
@@ -168,17 +280,34 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
     tol = 1e-3   # normalized log-mel; fp32 sums in another order
     log(f"K1 log_mel: max_abs_err {err:.3e} (tolerance {tol})")
     check(err <= tol, "K1 log_mel vs plain")
-    flops = 2 * (2 * n_frames * mel.N_FFT * 201) + 2 * n_frames * 201 * n_mels
-    nbytes = 4 * (audio.numel() + 2 * mel.N_FFT * 201 + 201 * n_mels
+    check_k1_energies(frontend, mel)
+    # Bound: the DFT folded twice, by the sample symmetry (x[n] +- x[400-n]:
+    # 201 samples a frame for re and for im) and by the bin symmetry
+    # C[n, 200-k] = (-1)^n C[n, k] (each sample meets 101 bins: even and odd
+    # n summed apart, then added and subtracted), plus the banded mel
+    # projection (the filters' nonzeros). Beside it the bounds of the once
+    # folded DFT the kernel runs (two [3000, 201] @ [201, 201] products) and
+    # of the dense DFT. An FFT needs fewer operations still; there the bytes
+    # would bound it.
+    nnz = int(np.count_nonzero(mel.mel_filter_bank(n_mels)))
+    n_bins = mel.N_FFT // 2 + 1
+    mel_flops = 2 * n_frames * nnz
+    nbytes = 4 * (audio.numel() + 2 * mel.N_FFT * n_bins + nnz
                   + n_frames * n_mels)
-    b, by = bound_ms(nbytes, flops, "fp32")
+    b, by = bound_ms(nbytes, 2 * (2 * n_frames * n_bins * (n_bins // 2 + 1))
+                     + mel_flops, "fp32")
+    folded_b, _ = bound_ms(nbytes, 2 * (2 * n_frames * n_bins * n_bins)
+                           + mel_flops, "fp32")
+    dense_b, _ = bound_ms(nbytes, 2 * (2 * n_frames * mel.N_FFT * n_bins)
+                          + mel_flops, "fp32")
     rows.append(dict(
         name="log_mel", source="openhush_tpu_torch/csrc/frontend.cu",
         replaces="openhush_tpu/ops/frontend_pallas.py:80",
         counter=frontend.log_mel_energies, max_abs_err=err,
         ms=time_ms(lambda: frontend.log_mel_energies(audio, n_mels, n_frames)),
         plain_ms=time_ms(lambda: mel.log_mel_energies(audio, n_mels, n_frames)),
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, folded_bound_ms=folded_b,
+        dense_bound_ms=dense_b, library_ms=None))
 
     # K2: encoder attention, 20 heads, Dh=64, bf16 (the tensor-core kernel),
     # read through the strided [B, T, H*Dh] projection layout as encode()
@@ -221,28 +350,27 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
         plain_ms=time_ms(lambda: flash_attention.attend(*qkv)),
         bound_ms=b, bound_by=by, library_ms=time_ms(lambda: sdpa(*qkv))))
 
-    # K3: per-head int8 quantize of one cross-KV tensor, [1, 1500, 1280] bf16.
-    x = (3 * torch.randn(1, T, H * D, generator=g, device=dev)
-         ).to(torch.bfloat16)
-    q, s = quantize.quantize_heads(x, H)
-    qp, sp = quantize.quantize_heads_plain(x, H)
-    torch.cuda.synchronize()
-    s_err = (s - sp).abs().max().item()
-    dq = (q.int() - qp.int()).abs()
-    err = dq.max().item()
-    frac = dq.ne(0).float().mean().item()
-    log(f"K3 quantize_heads: scales max_abs_err {s_err:.3e} (tolerance 0), "
-        f"int8 levels max_abs_err {err} on {frac:.2e} of elements "
-        f"(tolerance 1 level on <= 1e-3: .5 ties)")
-    check(s_err == 0 and err <= 1 and frac <= 1e-3, "K3 quantize vs plain")
-    b, by = bound_ms(x.numel() * 2 + q.numel() + s.numel() * 4,
-                     3 * x.numel(), "bf16")
+    # K3: per-head int8 quantize of a layer's cross K and V, [1, 1500, 1280]
+    # bf16 each, in one launch into a slice of stacked buffers, and of one
+    # tensor alone; then fp32 and other head dims at T=333.
+    k, v = ((scale * torch.randn(1, T, H * D, generator=g, device=dev)
+             ).to(torch.bfloat16) for scale in (3.0, 1.0))
+    out, err = check_k3(quantize, k, v, H)
+    for dtype, Bq, Tq, Hq, Dq in K3_SHAPES:
+        kq, vq = ((scale * torch.randn(Bq, Tq, Hq * Dq, generator=g,
+                                       device=dev)).to(dtype)
+                  for scale in (3.0, 1.0))
+        check_k3(quantize, kq, vq, Hq)
+    b, by = bound_ms(2 * (k.numel() * 2 + k.numel() + T * H * 4),
+                     2 * 3 * k.numel(), "bf16")
     rows.append(dict(
         name="quantize_heads", source="openhush_tpu_torch/csrc/quantize_heads.cu",
         replaces="openhush_tpu/ops/quantize_pallas.py:56",
-        counter=quantize.quantize_heads, max_abs_err=float(err),
-        ms=time_ms(lambda: quantize.quantize_heads(x, H)),
-        plain_ms=time_ms(lambda: quantize.quantize_heads_plain(x, H)),
+        counter=quantize.quantize_heads_kv, max_abs_err=float(err),
+        ms=time_ms(lambda: quantize.quantize_heads_kv(k, v, H, out)),
+        per_tensor_ms=time_ms(lambda: quantize.quantize_heads(k, H)),
+        plain_ms=time_ms(
+            lambda: quantize.quantize_heads_kv_plain(k, v, H, out)),
         bound_ms=b, bound_by=by, library_ms=None))
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
@@ -918,8 +1046,8 @@ def phase_main_path(WhisperEngine, whisper, counters, n_layer):
     check(launches["log_mel_energies"] >= windows, "K1 ran once per window")
     check(launches["flash_attention"] == n_layer * windows,
           "K2 ran once per encoder layer and window")
-    check(launches["quantize_heads"] == 2 * n_layer * windows,
-          "K3 ran for K and V of every decoder layer and window")
+    check(launches["quantize_heads_kv"] == n_layer * windows,
+          "K3 ran once (K and V) for every decoder layer and window")
     check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer)
     return launches, eng
 
@@ -967,7 +1095,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer):
         f"launches {launches}")
     check(launches["log_mel_energies"] >= 1
           and launches["flash_attention"] >= n_layer
-          and launches["quantize_heads"] >= 2 * n_layer,
+          and launches["quantize_heads_kv"] >= n_layer,
           "K1-K3 ran in the server's window preparation")
     check_decode_launches(launches, flat_calls, n_layer)
 
@@ -1222,7 +1350,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        for key in ("batch1_ms", "batch1_bound_ms", "cuda_core_bound_ms",
+        for key in ("per_tensor_ms", "folded_bound_ms", "dense_bound_ms",
+                    "batch1_ms", "batch1_bound_ms", "cuda_core_bound_ms",
                     "split_ms", "on_shared_planes_ms", "fp32_residual_ms",
                     "fp32_residual_bound_ms",
                     "fp32_residual_cuda_core_bound_ms",

@@ -34,7 +34,7 @@ from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.ops.decode_attention import (attend_decode,
                                                      attend_decode_pipelined)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
-from openhush_tpu_torch.ops.quantize import quantize_heads
+from openhush_tpu_torch.ops.quantize import quantize_heads_kv
 
 Params = dict
 NEG = torch.finfo(torch.float32).min       # mask fill, as jnp.finfo(f32).min
@@ -184,16 +184,22 @@ def compute_cross_kv(cfg: WhisperConfig, params: Params,
 
 def compute_cross_kv_quant(cfg: WhisperConfig, params: Params,
                            audio_features: torch.Tensor) -> QuantKVCache:
-    """int8 variant of compute_cross_kv, quantized a layer at a time on the
-    per-head quantize kernel."""
-    n_head = cfg.n_text_head
-    kq, ks, vq, vs = [], [], [], []
-    for k, v in _cross_kv_layers(params, audio_features):
-        k8, k_s = quantize_heads(k, n_head)
-        v8, v_s = quantize_heads(v, n_head)
-        kq.append(k8), ks.append(k_s), vq.append(v8), vs.append(v_s)
-    return QuantKVCache(torch.stack(kq), torch.stack(ks), torch.stack(vq),
-                        torch.stack(vs))
+    """int8 variant of compute_cross_kv, a layer at a time (as the
+    reference's scan, so the layers' fp intermediates never all exist at
+    once): one launch of the per-head quantize kernel writes layer l's K and
+    V straight into slice l of the stacked cache."""
+    L, n_head = cfg.n_text_layer, cfg.n_text_head
+    B, T = audio_features.shape[:2]
+    dev = audio_features.device
+    vals = lambda: torch.empty(L, B, T, cfg.n_text_state, dtype=torch.int8,
+                               device=dev)
+    scales = lambda: torch.empty(L, B, T, n_head, dtype=torch.float32,
+                                 device=dev)
+    out = QuantKVCache(vals(), scales(), vals(), scales())
+    for l, (k, v) in enumerate(_cross_kv_layers(params, audio_features)):
+        quantize_heads_kv(k, v, n_head, (out.k[l], out.k_scale[l], out.v[l],
+                                         out.v_scale[l]))
+    return out
 
 
 def _attend_views(q4, k4, v4, mask, *, ks=None, vs=None):

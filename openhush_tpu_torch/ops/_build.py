@@ -44,7 +44,7 @@ SIGNATURES = {
                                   + [ctypes.POINTER(_LL), _F, _I, _P],
     "oh_flash_attention_bwd_dq": [_P] * 8 + [_I] * 4
                                  + [ctypes.POINTER(_LL), _F, _I, _P],
-    "oh_quantize_heads": [_P, _P, _P, _LL, _I, _I, _P],
+    "oh_quantize_heads_kv": [_P] * 6 + [_LL, _I, _I, _P],
     "oh_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                             _I, _I, _F, _I, _I, _I, _P],
 }

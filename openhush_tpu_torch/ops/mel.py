@@ -67,6 +67,19 @@ def mel_filter_bank(n_mels: int = 80, n_freqs: int = N_FFT // 2 + 1,
     return fb.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=4)
+def mel_bands(n_mels: int = 80) -> np.ndarray:
+    """[n_mels, 2] int32: for each mel filter, the first and last frequency
+    bin where `mel_filter_bank(n_mels)` is nonzero (each filter is one
+    contiguous band of bins; an empty filter gets (0, -1))."""
+    fb = mel_filter_bank(n_mels)
+    bands = np.empty((n_mels, 2), np.int32)
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        bands[m] = (nz[0], nz[-1]) if nz.size else (0, -1)
+    return bands
+
+
 @functools.lru_cache(maxsize=2)
 def _dft_bases(n_fft: int = N_FFT) -> tuple[np.ndarray, np.ndarray]:
     """Real-DFT bases with the periodic hann window folded in.

@@ -19,6 +19,7 @@ import torch
 from openhush_tpu.models.whisper import model as jax_model
 from openhush_tpu.models.whisper.config import CONFIGS
 from openhush_tpu_torch.models.whisper import model, weights
+from openhush_tpu_torch.ops import quantize
 
 CFG = CONFIGS["test"]
 LOGIT_ATOL = 2e-4
@@ -160,6 +161,34 @@ def test_cross_kv_matches_jax(setup):
                                atol=1e-5)
     np.testing.assert_allclose(fp.v.numpy(), np.asarray(xkv["fp"].v),
                                atol=1e-5)
+    jq = xkv["int8"]
+    for ours, ref in ((q.k_scale, jq.k_scale), (q.v_scale, jq.v_scale)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6)
+    for ours, ref in ((q.k, jq.k), (q.v, jq.v)):
+        d = np.abs(ours.numpy().astype(np.int32)
+                   - np.asarray(ref).astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() < 1e-3
+
+
+def test_cross_kv_quant_is_one_stacked_cache(setup):
+    """compute_cross_kv_quant quantizes layer by layer into one stacked
+    cache: layer l's slices are the per-head quantize of layer l's K and V
+    (compute_cross_kv's), bit for bit, and the whole cache holds to JAX's
+    compute_cross_kv_quant (scales rtol 1e-6, values within one level)."""
+    jparams, params, feats, xkv = setup
+    f = torch.from_numpy(np.array(feats))
+    with torch.no_grad():
+        fp = model.compute_cross_kv(CFG, params, f)
+        q = model.compute_cross_kv_quant(CFG, params, f)
+    L, H = CFG.n_text_layer, CFG.n_text_head
+    assert q.k.shape == q.v.shape == fp.k.shape and q.k.dtype == torch.int8
+    assert q.k_scale.shape == (L, *fp.k.shape[1:3], H)
+    assert q.k.is_contiguous() and q.v_scale.is_contiguous()
+    for l in range(L):
+        for x, vals, scales in ((fp.k[l], q.k[l], q.k_scale[l]),
+                                (fp.v[l], q.v[l], q.v_scale[l])):
+            ref_q, ref_s = quantize.quantize_heads_plain(x, H)
+            assert torch.equal(vals, ref_q) and torch.equal(scales, ref_s)
     jq = xkv["int8"]
     for ours, ref in ((q.k_scale, jq.k_scale), (q.v_scale, jq.v_scale)):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6)

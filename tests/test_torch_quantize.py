@@ -69,3 +69,59 @@ def test_zeros_and_extremes():
     q, _ = quantize.quantize_heads(torch.full((1, 128, 256), 3.0e4,
                                               dtype=torch.bfloat16), 4)
     assert bool((q == 127).all())
+
+
+@pytest.mark.parametrize("dtype,n_head,head_dim", [
+    (jnp.bfloat16, 20, 64),     # large-v3's cross K and V
+    (jnp.float32, 2, 32),       # the test config's
+])
+def test_kv_into_stacked_slices_matches_xla(dtype, n_head, head_dim):
+    """quantize_heads_kv writes K's and V's int8 values and scales into
+    slice 1 of stacked [3, B, T, ...] buffers, each as the JAX model's
+    _quantize_heads gives it; slices 0 and 2 keep what they held."""
+    rng = np.random.default_rng(3)
+    B, T = 2, 96
+    k, v = (jnp.asarray(rng.standard_normal((B, T, n_head * head_dim))
+                        * scale, dtype) for scale in (3.0, 0.5))
+    to_torch = lambda x: torch.from_numpy(np.array(x, np.float32)).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    vals = lambda: torch.full((3, B, T, n_head * head_dim), 7, dtype=torch.int8)
+    scales = lambda: torch.full((3, B, T, n_head), 7.0)
+    out = [vals(), scales(), vals(), scales()]
+    quantize.quantize_heads_kv(to_torch(k), to_torch(v), n_head,
+                               tuple(t[1] for t in out))
+    for x, q, s in ((k, out[0], out[1]), (v, out[2], out[3])):
+        q_ref, s_ref = jax_model._quantize_heads(x, n_head)
+        x32 = np.asarray(x, np.float32).reshape(B, T, n_head, head_dim)
+        _assert_matches(q[1].numpy(), s[1].numpy(), np.asarray(q_ref),
+                        np.asarray(s_ref), x32, head_dim)
+        for t in (q, s):
+            assert bool((t[0] == 7).all()) and bool((t[2] == 7).all())
+
+
+def test_kv_checks_what_the_kernel_takes():
+    """The wrapper's checks: a head_dim the kernel's lanes cannot split and
+    outputs of the wrong shape are refused before any launch, head dims of
+    a multiple of 16 bytes up to 512 are taken (the meta device stands in
+    for a card)."""
+    x = torch.empty(1, 4, 60, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantize.quantize_heads_kv(x, x, 2, ())
+    with pytest.raises(ValueError, match="head_dim"):
+        quantize._check("quantize_heads_kv", (x, x), (), 2)
+    x = torch.empty(1, 4, 64, dtype=torch.bfloat16)
+    q, s = torch.empty(1, 4, 64, dtype=torch.int8), torch.empty(1, 4, 2)
+    quantize._check("quantize_heads_kv", (x, x), (q, s, q, s), 2)
+    with pytest.raises(ValueError, match="outputs"):
+        quantize._check("quantize_heads_kv", (x, x), (q, s, q, s[..., :1]), 2)
+    for dtype, head_dim in ((torch.bfloat16, 80), (torch.bfloat16, 96),
+                            (torch.bfloat16, 256), (torch.float32, 4),
+                            (torch.float32, 80), (torch.float32, 128)):
+        x = torch.empty(1, 4, 2 * head_dim, dtype=dtype, device="meta")
+        q = torch.empty(1, 4, 2 * head_dim, dtype=torch.int8, device="meta")
+        s = torch.empty(1, 4, 2, device="meta")
+        quantize._check("quantize_heads_kv", (x, x), (q, s, q, s), 2)
+    for dtype, head_dim in ((torch.bfloat16, 264), (torch.float32, 132)):
+        x = torch.empty(1, 4, 2 * head_dim, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="head_dim"):
+            quantize._check("quantize_heads_kv", (x, x), (), 2)
