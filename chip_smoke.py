@@ -29,13 +29,20 @@ Phases, each printing its own lines and its seconds:
      residual output in fp32 and bf16 (fp32 also at T=333, and the same
      bits over two launches), timed at the fine-tune's shape beside their
      tensor-core (bf16x3) and fp32 CUDA-core bounds, SDPA's fp32 forward
-     and backward, and the split pass that K6 and K7 share;
+     and backward, and the split pass that K6 and K7 share; the int8
+     self-cache's kernels: K4 in its int8 mode over caches K3 wrote (B=8,
+     T=128, per-row lengths; B=1, T=448; S=3 causal), each held to itself
+     over two launches and timed at B=8 and B=1, and K3 at the write's
+     shape ([8, 1, 1280] and [1, 1, 1280] K and V), bit for bit, timed;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
      against the one-shot greedy loop on the card: the same tokens; then
      3 train_steps of "tiny" on the card against the CPU (losses and the
-     first step's gradients);
+     first step's gradients); then "tiny" with all three int8 rungs on, the
+     card against the CPU: quantized weights, W8A8 features, decoder
+     logits and written self-cache over a prefill and 8 steps, and an
+     int8-self-cache server's tokens;
   4. the one-shot path: WhisperEngine("large-v3", bf16, random weights from
      seed 0) transcribes two requests (about 20 s and 45 s of speech-like
      audio), with every kernel's launch count read over exactly that run;
@@ -45,6 +52,12 @@ Phases, each printing its own lines and its seconds:
      longform.transcribe_files on 8 requests of 5-45 s, with every
      kernel's launch count read over exactly that run, then a few steps at
      8 busy slots under a device-only trace;
+  4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
+     quantize_encoder) through phases 4 and 4b's runs, the encoder's
+     device time W8A8 against bf16 at B=1 and B=8 (and torch._int_mm on
+     column- and row-major levels), then phase 4c's run on a server with
+     an int8 self-cache (K3 counted once per layer and flat decoder call
+     besides the cross-KV's), its self-cache bytes against bf16;
   5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
      <wav> --model large-v3 --random-init --format json`, then the same with
      three WAVs (the serving path: a JSON list);
@@ -53,7 +66,8 @@ Phases, each printing its own lines and its seconds:
      encoder attention's forward in residual mode (K2) and of its backward
      kernels (K6, K7) read over exactly that run;
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
-from the fine-tune for K6 and K7) and, last,
+from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
+int8 self-cache row and K3's write row) and, last,
 the `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
@@ -588,6 +602,140 @@ def phase_decode_attention(da, quantize):
     return rows
 
 
+def phase_int8_self_cache(da, quantize):
+    """The int8 self-cache's kernels at large-v3's width (20 heads, Dh 64):
+    K4 in its int8 mode (kv_kind 0, causal, per-row lengths) over caches
+    whose levels and scales K3 wrote from random bf16 keys, as the decode
+    step writes them: B=8, T=128 (the serving step), B=1, T=448 with every
+    row visible, and S=3 causal queries (a flat prefill); each against the
+    plain version and against itself over two launches, then timed over 32
+    per-layer copies (cold in L2) at B=8 and at B=1 (100 keys of 128, as
+    the bf16 row). Then K3 at the write's shape: one launch for a layer's
+    new K and V, [8, 1, 1280] and [1, 1, 1280] bf16, bit for bit against
+    the plain version, timed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    H, D = 20, 64
+    HD = H * D
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def empty_kv(B, T):
+        return (torch.empty(B, T, HD, dtype=torch.int8, device=dev),
+                torch.empty(B, T, H, device=dev),
+                torch.empty(B, T, HD, dtype=torch.int8, device=dev),
+                torch.empty(B, T, H, device=dev))
+
+    def k3_cache(B, T):
+        """(k8, v8, ks, vs): K3's levels and scales of random bf16 keys."""
+        out = empty_kv(B, T)
+        k, v = (rnd(B, T, HD).to(torch.bfloat16) for _ in range(2))
+        quantize.quantize_heads_kv(k, v, H, out)
+        return out[0], out[2], out[1], out[3]
+
+    rows = []
+    main = None
+    for B, T, S, lengths in (
+            (SERVE_SLOTS, 128, 1, (torch.randint(0, 128, (SERVE_SLOTS,),
+                                                 generator=g, device=dev)
+                                   + 1).to(torch.int32)),
+            (1, 448, 1, torch.full((1,), 448, dtype=torch.int32,
+                                   device=dev)),
+            (2, 128, 3, torch.tensor([126, 9], dtype=torch.int32,
+                                     device=dev))):
+        k8, v8, ks, vs = k3_cache(B, T)
+        q = rnd(B, S, HD).to(torch.bfloat16)
+        args = (q, k8, v8, lengths, H)
+        kw = dict(ks=ks, vs=vs, causal=True, return_probs=True)
+        (o, p), (o2, p2) = (da.attend_decode(*args, **kw) for _ in range(2))
+        plain, p_plain = da.attend_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"B={B}, T={T}, S={S}"
+        check(torch.equal(o, o2) and torch.equal(p, p2),
+              f"K4 int8 self-cache ({what}): the same bits over two launches")
+        e = (o.float() - plain.float()).abs().max().item()
+        dp = (p - p_plain).abs()
+        n_vis = H * sum(min(int(n) + s, T) for n in lengths for s in range(S))
+        share = dp.ne(0).sum().item() / n_vis
+        log(f"K4 attend_decode (int8 self-cache, {what}, causal, lengths "
+            f"{lengths.tolist() if B <= 2 else 'per row'}): max_abs_err "
+            f"{e:.3e} (tolerance 1e-2: bf16 outputs, and a prob level moved "
+            f"at a .5 tie moves an output by at most max_t(p*vs)); int8 prob "
+            f"levels max diff {dp.max().item():.0f} on {share:.2e} of "
+            f"visible keys (tolerance 1 level on <= 1e-3); the same bits "
+            f"over two launches")
+        check(e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+              f"K4 int8 self-cache vs plain ({what})")
+        if main is None:
+            main = (q, k8, v8, ks, vs, lengths, e)
+    q, k8, v8, ks, vs, lengths, err = main
+    B = q.shape[0]
+
+    def bound(n_keys, nb):
+        # The visible keys' int8 K and V (1280 B each) and their scales
+        # (2 x 20 fp32), the bf16 query and output, the lengths.
+        return bound_ms(n_keys * (2 * HD + 2 * H * 4) + 2 * nb * HD * 2
+                        + 4 * nb, 4 * n_keys * HD, "fp32")
+
+    b, by = bound(int(lengths.sum()), B)
+    layers = [tuple(x.clone() for x in (k8, v8, ks, vs))
+              for _ in range(N_LAYER)]
+    on_layers = lambda fn, batch=slice(None), lens=lengths: rotate([
+        functools.partial(fn, q[batch], kl[batch], vl[batch], lens, H,
+                          ks=ksl[batch], vs=vsl[batch], causal=True)
+        for kl, vl, ksl, vsl in layers])
+    lens1 = torch.tensor([100], dtype=torch.int32, device=dev)
+    rows.append(dict(
+        name="decode_attention_direct_int8_self",
+        source="openhush_tpu_torch/csrc/decode_attention.cu",
+        replaces="openhush_tpu/ops/decode_attention.py:133",
+        counter=da.attend_decode, max_abs_err=err,
+        ms=time_ms(on_layers(da.attend_decode), iters=2 * N_LAYER),
+        plain_ms=time_ms(on_layers(da.attend_decode_plain)),
+        bound_ms=b, bound_by=by, library_ms=None,
+        batch1_ms=time_ms(on_layers(da.attend_decode, slice(0, 1), lens1),
+                          iters=2 * N_LAYER),
+        batch1_bound_ms=bound(100, 1)[0]))
+    del layers
+
+    # K3 at the write's shape: a layer's S = 1 new K and V at 8 slots (the
+    # serving step) and at batch 1.
+    for nb in (SERVE_SLOTS, 1):
+        k, v = (rnd(nb, 1, HD).to(torch.bfloat16) for _ in range(2))
+        out, ref = empty_kv(nb, 1), empty_kv(nb, 1)
+        quantize.quantize_heads_kv(k, v, H, out)
+        quantize.quantize_heads_kv_plain(k, v, H, ref)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, r) for a, r in zip(out, ref)),
+              f"K3 at the write's shape [{nb}, 1, {HD}]: the plain "
+              f"version's bits")
+        log(f"K3 quantize_heads_kv (self-cache write, [{nb}, 1, {HD}] bf16 "
+            f"K and V in one launch): levels and scales the plain "
+            f"version's bits")
+        ms = time_ms(lambda: quantize.quantize_heads_kv(k, v, H, out))
+        # Both inputs read once, both outputs' levels and scales written.
+        nb_bound = bound_ms(2 * (nb * HD * 2 + nb * HD + nb * H * 4),
+                            2 * 3 * nb * HD, "bf16")
+        if nb == SERVE_SLOTS:
+            rows.append(dict(
+                name="quantize_heads_self_write",
+                source="openhush_tpu_torch/csrc/quantize_heads.cu",
+                replaces="openhush_tpu/ops/quantize_pallas.py:56",
+                counter=quantize.quantize_heads_kv, max_abs_err=0.0, ms=ms,
+                plain_ms=time_ms(lambda: quantize.quantize_heads_kv_plain(
+                    k, v, H, ref)),
+                bound_ms=nb_bound[0], bound_by=nb_bound[1], library_ms=None))
+        else:
+            rows[-1]["batch1_ms"] = ms
+            rows[-1]["batch1_bound_ms"] = nb_bound[0]
+    for r in rows:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us "
+            f"({r['bound_by']}); batch 1: kernel {r['batch1_ms']:.4f} ms, "
+            f"bound {r['batch1_bound_ms'] * 1e3:.3f} us; library none (no "
+            f"one PyTorch call does the int8 math)")
+    return rows
+
+
 def phase_flash_backward(fa, k2_row):
     """K2's residual mode (the per-row log-sum-exp), K6 (dK, dV) and K7 (dQ)
     at the large-v3 encoder's shapes (20 heads, T=1500, Dh=64, read through
@@ -1003,19 +1151,216 @@ def phase_server_tiny(cfg, params, WhisperEngine, EngineServer, decoding,
             check(got[sid] == ref, "server tokens == one-shot tokens")
 
 
-def check_decode_launches(launches, flat_calls, n_layer):
+def phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
+                    get_config, frontend, mel, max_new=32):
+    """tiny, fp32, with all three int8 rungs on (int8 decoder weights, the
+    W8A8 encoder, the int8 self-cache): the card against the CPU from the
+    same fp32 weights, each side's engine quantizing them.
+    - The quantized weights: the same bits.
+    - The W8A8 arithmetic on the same inputs (the per-row quantize and the
+      int8 product with both folds, at an encoder layer's shape): the same
+      bits.
+    - The W8A8 features from the same log-mel, held to the dense fp32
+      features of the same weights: the card's as close to them as the
+      CPU's (median distance within 10% of the CPU's, max within 25%: an
+      extreme of another draw of the same noise), and the two
+      W8A8 encoders closer to each other than to the dense one (median).
+      They are not equal to fp32 noise: the card's flash kernel differs
+      from the plain attention by ~1e-5, the per-row quantize turns that
+      into level flips at .5 ties, and each flip moves its row by one
+      level of the row's scale.
+    - On the CPU's int8 cross-KV, the decoder over an int8 self-cache (the
+      prompt, then 8 steps teacher-forced with the CPU's greedy tokens):
+      logits atol 2e-3 (as phase 3's fp32 prompt logits), written levels
+      within one on <= 1e-3, scales rtol 1e-3 (an int8 prob level of K4
+      or K5 moved at a .5 tie moves the next layer's keys by ~1e-4).
+    - An int8-self-cache EngineServer on each (three windows over two
+      slots, t=0, guards off; the card's server decodes the CPU server's
+      prepared cross-KV): the same tokens, up to the first step where the
+      CPU's top two filtered logits lie within four times the logits error
+      measured above (floor 1e-4), where a tie may go either way: random
+      tiny weights give logits of ~0.4 whose top two are often under 1e-3
+      apart."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("tiny")
+    base = weights.init_params(cfg, torch.Generator().manual_seed(SEED + 80),
+                               torch.float32, "cpu")
+    rungs = dict(quantize_weights=True, quantize_encoder=True)
+    engs = {dev: WhisperEngine("tiny", params=to_device(base, dev),
+                               device=dev, **rungs) for dev in ("cpu", "cuda")}
+    cpu, gpu = engs["cpu"].params, engs["cuda"].params
+    for part in ("encoder", "decoder"):
+        for name, w in cpu[part]["layers"].items():
+            if name.endswith("_w"):
+                check(isinstance(w, dict) and all(torch.equal(
+                    w[k], gpu[part]["layers"][name][k].cpu()) for k in w),
+                    f"tiny {part} {name}: the card's int8 weights are the "
+                    f"CPU's bits")
+    log("  tiny int8 rungs: the card's quantized weights are the CPU's bits")
+    tok = engs["cpu"].tokenizer
+    feats = {}
+    with torch.inference_mode():
+        g = torch.Generator().manual_seed(SEED + 83)
+        h = 3 * torch.randn(1, cfg.n_audio_ctx, cfg.n_audio_state, generator=g)
+        pieces = {}
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            lp = whisper._layers(params["encoder"]["layers"])[0]
+            h8, hs = whisper._quantize_rows(h.to(dev))
+            pieces[dev] = [t.cpu() for t in (
+                h8, hs, whisper._mm_i8(h8, hs, lp["fc1_w"]))]
+        same = all(torch.equal(a, b) for a, b in zip(*pieces.values()))
+        log(f"  tiny W8A8 per-row quantize and int8 product with its folds "
+            f"([1, {cfg.n_audio_ctx}, {cfg.n_audio_state}] x fc1): card vs "
+            f"CPU {'the same bits' if same else 'DIFFERENT'}")
+        check(same, "tiny W8A8 pieces card vs CPU")
+        window = torch.from_numpy(mel.pad_or_trim(speechlike(10.0, SEED + 81)))
+        m = frontend.log_mel(window[None], cfg.n_mels)      # the CPU's
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            feats[dev] = whisper.encode(cfg, params, m.to(dev)).cpu()
+        dense = whisper.encode(cfg, base, m)
+        dist = lambda a, b: ((a - b).abs().median().item(),
+                             (a - b).abs().max().item())
+        (med, top), (c_med, c_top), (g_med, g_top) = (
+            dist(feats["cuda"], feats["cpu"]), dist(feats["cpu"], dense),
+            dist(feats["cuda"], dense))
+        log(f"  tiny W8A8 encoder features from the same log-mel: from the "
+            f"dense fp32 features, card median {g_med:.3e} max {g_top:.3e}, "
+            f"CPU median {c_med:.3e} max {c_top:.3e} (tolerance: the card's "
+            f"within 10% and 25% of the CPU's); card vs CPU median {med:.3e} "
+            f"(tolerance: under the CPU's from dense), max {top:.3e}")
+        check(bool(torch.isfinite(feats["cuda"]).all())
+              and g_med <= 1.1 * c_med and g_top <= 1.25 * c_top
+              and med <= c_med, "tiny W8A8 features card vs CPU")
+        xkv = whisper.compute_cross_kv_quant(cfg, cpu, feats["cpu"])
+        prompt = torch.tensor([tok.sot_sequence("en")])
+        logits, caches, toks = {}, {}, []
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            kv = whisper.QuantKVCache(*(t.to(dev) for t in (
+                xkv.k, xkv.k_scale, xkv.v, xkv.v_scale)))
+            cache = whisper.init_quant_kv_cache(cfg, 1, 64, device=dev)
+            lg, cache = whisper.decode(cfg, params, prompt.to(dev), 0, cache,
+                                       kv)
+            out, pos = [lg[0, -1].cpu()], prompt.shape[1]
+            for s in range(8):
+                if dev == "cpu":               # the CPU's greedy tokens
+                    toks.append(out[-1][:cfg.n_vocab].argmax())
+                lg, cache = whisper.decode(cfg, params,
+                                           toks[s].reshape(1, 1).to(dev),
+                                           pos, cache, kv)
+                out.append(lg[0, -1].cpu())
+                pos += 1
+            logits[dev], caches[dev] = torch.stack(out), cache
+    lc, lg = (logits[d][:, :cfg.n_vocab] for d in ("cpu", "cuda"))
+    e = (lc - lg).abs().max().item()
+    c, g = caches["cpu"], caches["cuda"]
+    dq = max((a.cpu().int() - b.int()).abs().max().item()
+             for a, b in ((g.k, c.k), (g.v, c.v)))
+    share = max((a.cpu() != b).float().mean().item()
+                for a, b in ((g.k, c.k), (g.v, c.v)))
+    s_err = max(((a.cpu() - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                for a, b in ((g.k_scale, c.k_scale), (g.v_scale, c.v_scale)))
+    log(f"  tiny int8 decoder (int8 weights, int8 self-cache, prefill + 8 "
+        f"steps): logits card vs CPU max_abs_err {e:.3e} (tolerance 2e-3; "
+        f"logits up to {lc.abs().max().item():.3f}); written self-cache "
+        f"levels max diff {dq} on {share:.2e} (tolerance 1 on <= 1e-3), "
+        f"scales max rel err {s_err:.3e} (tolerance 1e-3)")
+    check(e <= 2e-3 and dq <= 1 and share <= 1e-3 and s_err <= 1e-3,
+          "tiny int8 decoder card vs CPU")
+
+    audios = [speechlike(secs, SEED + 82 + i)
+              for i, secs in enumerate((8.0, 12.0, 20.0))]
+    plen = len(tok.sot_sequence("en", "transcribe"))
+    kw = dict(n_slots=2, inner_steps=8, dtype=torch.float32, tokenizer=tok,
+              max_decode_len=plen + max_new + 1, temperatures=(0.0,),
+              logprob_threshold=-1e9, no_speech_threshold=2.0,
+              max_admissions_per_turn=2, int8_self_cache=True)
+    srv = {dev: EngineServer(cfg, engs[dev].params, **kw)
+           for dev in ("cpu", "cuda")}
+    check(all(s.state.cache_k.dtype == torch.int8 for s in srv.values()),
+          "int8 self-cache servers")
+
+    def cpu_prep(windows, detect):
+        kv, probs = srv["cpu"]._prep(windows.cpu(), detect)
+        return (whisper.QuantKVCache(*(t.cuda() for t in (
+            kv.k, kv.k_scale, kv.v, kv.v_scale))),
+            None if probs is None else probs.cuda())
+
+    srv["cuda"]._prep = cpu_prep
+    # The CPU's decision margins, by session: the top two filtered logits
+    # of each live slot at each step.
+    margins, choose = {}, batcher._choose_tokens
+
+    def recording_choose(lg, st):
+        top2 = lg.topk(2, dim=-1).values
+        live = (st.active & ~st.finished).tolist()
+        for b, info in srv["cpu"]._slots.items():
+            if live[b]:
+                margins.setdefault(info.session_id, []).append(
+                    (top2[b, 0] - top2[b, 1]).item())
+        return choose(lg, st)
+
+    got = {}
+    for dev, s in srv.items():
+        sids = [s.open_session() for _ in audios]
+        for sid, a in zip(sids, audios):
+            s.submit_window(sid, a, language="en")
+        out = {}
+        if dev == "cpu":
+            batcher._choose_tokens = recording_choose
+        try:
+            for _ in range(200):
+                s.run_once()
+                for sid in sids:
+                    r = s.poll(sid)
+                    if r is not None:
+                        out[sid] = r.tokens
+                if len(out) == len(sids):
+                    break
+        finally:
+            batcher._choose_tokens = choose
+        check(len(out) == len(sids), f"tiny int8 server ({dev}) finished")
+        got[dev] = [(out[sid], margins.get(sid)) for sid in sids]
+    tie = max(4 * e, 1e-4)
+    for (ref, m), (ours, _) in zip(got["cpu"], got["cuda"]):
+        k = next((i for i, (a, b) in enumerate(zip(ref, ours)) if a != b),
+                 min(len(ref), len(ours)))
+        same = ref == ours
+        log(f"  tiny int8 server, card vs CPU: {len(ours)} tokens, "
+            + ("equal" if same else
+               f"equal up to token {k}, where the CPU's margin is "
+               f"{m[min(k, len(m) - 1)]:.2e} (a tie within {tie:.1e})"))
+        check(same or m[min(k, len(m) - 1)] <= tie,
+              "tiny int8 server tokens card == CPU up "
+              "to a tie")
+
+
+def check_decode_launches(launches, flat_calls, n_layer, int8_self=None):
     """Every flat decoder call launches K4 (self) and K5 (cross) once per
-    decoder layer."""
+    decoder layer. With an int8 self-cache, int8_self = (the flat calls
+    that wrote it, the cross-KV computations) of the same run: K3 runs once
+    per layer for each, the new keys' and the cross K and V's."""
     k4 = launches["attend_decode"]
     k5 = launches["attend_decode_pipelined"]
     log(f"  flat decoder calls {flat_calls}: K4 launches {k4}, K5 launches "
         f"{k5} (expected {n_layer} x {flat_calls} = {n_layer * flat_calls})")
     check(flat_calls > 0 and k4 == k5 == n_layer * flat_calls,
           "K4 and K5 ran once per decoder layer and flat decoder call")
+    if int8_self is not None:
+        writes, xkv_calls = int8_self
+        k3 = launches["quantize_heads_kv"]
+        want = n_layer * (writes + xkv_calls)
+        log(f"  K3 launches {k3} (expected {n_layer} x ({writes} flat "
+            f"decoder calls on the int8 self-cache + {xkv_calls} cross-KV "
+            f"computations) = {want})")
+        check(k3 == want, "K3 ran once per decoder layer and flat decoder "
+              "call (the int8 self-cache's new keys), and once per layer "
+              "and cross-KV computation")
 
 
-def phase_main_path(WhisperEngine, whisper, counters, n_layer):
-    eng = WhisperEngine("large-v3", dtype="bfloat16", allow_random_init=True)
+def phase_main_path(eng, whisper, counters, n_layer):
+    """The one-shot path: `eng` transcribes two requests (20 s and 45 s),
+    with every kernel's launch count read over exactly that run."""
     requests = [speechlike(20.0, SEED + 2), speechlike(45.0, SEED + 3)]
     torch.cuda.synchronize()
     for fn in counters:
@@ -1049,33 +1394,73 @@ def phase_main_path(WhisperEngine, whisper, counters, n_layer):
     check(launches["quantize_heads_kv"] == n_layer * windows,
           "K3 ran once (K and V) for every decoder layer and window")
     check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer)
-    return launches, eng
+    return launches
 
 
-def phase_serving(eng, longform, whisper, counters, n_layer):
-    """The serving path: make_server (8 slots) on the one-shot path's
-    weights, transcribe_files on 8 requests of 5-45 s, with every kernel's
-    launch count read over exactly that run. Then 8 fresh windows fill the
-    slots and a few steps run at 8 busy slots: timed on the host clock,
-    then under a device-only trace (busy time, idle share)."""
+def phase_serving(eng, longform, whisper, counters, n_layer,
+                  int8_self_cache=False):
+    """The serving path: make_server (8 slots) on the engine's weights
+    (with an int8 self-cache if asked), transcribe_files on 8 requests of
+    5-45 s, with every kernel's launch count read over exactly that run.
+    Then 8 fresh windows fill the slots and a few steps run at 8 busy
+    slots: timed on the host clock, then under a device-only trace (busy
+    time, idle share). Returns the launches and the flat decoder calls
+    that wrote the self-cache (language detection's run on a bf16 cache of
+    its own)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from openhush_tpu_torch.models.whisper import decoding
     cfg, params, tok = eng.cfg, eng.params, eng.tokenizer
     srv = longform.make_server(cfg, params, tok, n_files=len(SERVE_SECS),
                                n_slots=SERVE_SLOTS,
                                max_new_tokens=MAX_NEW_TOKENS,
-                               dtype=torch.bfloat16, temperatures=(0.0,))
+                               dtype=torch.bfloat16, temperatures=(0.0,),
+                               int8_self_cache=int8_self_cache)
     check(srv.n_slots == SERVE_SLOTS, "the budgeter kept 8 slots")
+    st = srv.state
+    check((st.cache_k.dtype == torch.int8) == int8_self_cache,
+          "the server's self-cache dtype")
+    if int8_self_cache:
+        # The self-cache's bytes against a bf16 one of the same shape, and
+        # one slot's at the one-shot engine's 448 rows.
+        L, B, T, HD = st.cache_k.shape
+        H = st.cache_ks.shape[-1]
+        ours = sum(t.numel() * t.element_size() for t in (
+            st.cache_k, st.cache_v, st.cache_ks, st.cache_vs))
+        log(f"  int8 self-cache at {B} slots x {T} rows: {ours / 1e6:.2f} MB"
+            f" (bf16: {2 * L * B * T * HD * 2 / 1e6:.2f} MB); a slot at 448 "
+            f"rows: {2 * L * 448 * HD / 1e6:.2f} MB of levels + "
+            f"{2 * L * 448 * H * 4 / 1e6:.2f} MB of scales (bf16: "
+            f"{2 * L * 448 * HD * 2 / 1e6:.2f} MB)")
     requests = [speechlike(secs, SEED + 20 + i)
                 for i, secs in enumerate(SERVE_SECS)]
+    # Count the cross-KV computations (one K3 launch a layer each) and the
+    # language detections (a flat decoder call on a bf16 cache of its own).
+    calls = {"xkv": 0, "detect": 0}
+    xkv_fn, detect_fn = (whisper.compute_cross_kv_quant,
+                         decoding.detect_language_logits)
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
     whisper._decode_flat_ro.calls = 0
-    t0 = time.monotonic()
-    results = longform.transcribe_files(srv, requests, language="auto")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    whisper.compute_cross_kv_quant = counted("xkv", xkv_fn)
+    decoding.detect_language_logits = counted("detect", detect_fn)
+    try:
+        t0 = time.monotonic()
+        results = longform.transcribe_files(srv, requests, language="auto")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        whisper.compute_cross_kv_quant = xkv_fn
+        decoding.detect_language_logits = detect_fn
     launches = {fn.__name__: fn.launches for fn in counters}
     flat_calls = whisper._decode_flat_ro.calls
     dispatches = srv.step_dispatches
@@ -1097,7 +1482,9 @@ def phase_serving(eng, longform, whisper, counters, n_layer):
           and launches["flash_attention"] >= n_layer
           and launches["quantize_heads_kv"] >= n_layer,
           "K1-K3 ran in the server's window preparation")
-    check_decode_launches(launches, flat_calls, n_layer)
+    writes = flat_calls - calls["detect"]
+    check_decode_launches(launches, flat_calls, n_layer,
+                          (writes, calls["xkv"]) if int8_self_cache else None)
 
     # Steady state: 8 busy slots (prepared and admitted, no step yet).
     sids = [srv.open_session() for _ in range(SERVE_SLOTS)]
@@ -1132,7 +1519,58 @@ def phase_serving(eng, longform, whisper, counters, n_layer):
             f"{1 - busy / 1e6 / traced:.3f}")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
-    return launches
+    return launches, writes
+
+
+def phase_int8_encoder(eng, eng8, whisper, frontend):
+    """One window's encoder on the card, W8A8 (eng8's weights) against
+    bf16 (eng's, the same values before quantizing), at B=1 and B=8: device
+    busy time (and W8A8's top kernels at B=1); then torch._int_mm at the
+    MLP's first product ([1500, 1280] x [1280, 5120]) on the column-major
+    levels the encoder stores and on a row-major copy, beside the bf16
+    product."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = eng.cfg
+
+    def device_ms(params, m):
+        """Device busy time of one encode (after one warm-up), by a
+        device-only trace: an eager W8A8 encode at B=1 queues kernels
+        slower than the card runs them, so events would time the host."""
+        whisper.encode(cfg, params, m)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            whisper.encode(cfg, params, m)
+            torch.cuda.synchronize()
+        busy, by_name = device_time(prof)
+        return busy / 1e3, by_name
+
+    with torch.inference_mode():
+        window = torch.from_numpy(speechlike(30.0, SEED + 5)).cuda()[None]
+        mel1 = frontend.log_mel(window, cfg.n_mels).to(eng.dtype)
+        for B in (1, SERVE_SLOTS):
+            m = mel1.expand(B, -1, -1).contiguous()
+            (bf16, _), (w8a8, by_name) = (device_ms(e.params, m)
+                                          for e in (eng, eng8))
+            log(f"  encoder, one 30 s window x B={B}: device busy W8A8 "
+                f"{w8a8:.3f} ms, bf16 {bf16:.3f} ms")
+            if B == 1 and w8a8 > 0:
+                for name, us in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1])[:8]:
+                    log(f"    {us / 1e3 / w8a8:6.1%}  {us / 1e3:8.3f} ms  "
+                        f"{name[:90]}")
+        w = whisper._layers(eng8.params["encoder"]["layers"])[0]["fc1_w"]
+        x8 = torch.randint(-127, 128, (1500, w["q"].shape[0]), device="cuda",
+                           dtype=torch.int8)
+        row_major = w["q"].contiguous()
+        check(torch.equal(torch._int_mm(x8, w["q"]),
+                          torch._int_mm(x8, row_major)), "_int_mm layouts")
+        xb, wb = x8.to(torch.bfloat16), row_major.to(torch.bfloat16)
+        log(f"  _int_mm [1500, {w['q'].shape[0]}] x {list(w['q'].shape)}: "
+            f"column-major levels "
+            f"{time_ms(lambda: torch._int_mm(x8, w['q'])):.4f} ms, row-major "
+            f"{time_ms(lambda: torch._int_mm(x8, row_major)):.4f} ms; the "
+            f"bf16 product of the same shape {time_ms(lambda: xb @ wb):.4f} "
+            f"ms")
 
 
 def phase_trace(eng, decoding, whisper, frontend, steps=32):
@@ -1271,7 +1709,7 @@ def main() -> int:
     from openhush_tpu_torch.ops import (_build, decode_attention,
                                         flash_attention, frontend, mel,
                                         quantize)
-    from openhush_tpu_torch.runtime import longform
+    from openhush_tpu_torch.runtime import batcher, longform
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.runtime.server import EngineServer
     from openhush_tpu_torch.training import data, train
@@ -1296,6 +1734,7 @@ def main() -> int:
     rows = phase_kernels(frontend, flash_attention, quantize, mel)
     rows += phase_decode_attention(decode_attention, quantize)
     rows += phase_flash_backward(flash_attention, rows[1])
+    int8_rows = phase_int8_self_cache(decode_attention, quantize)
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -1313,13 +1752,16 @@ def main() -> int:
                       decoding, whisper, frontend, mel)
     del tiny_gpu
     phase_train_tiny(train, weights, get_config, flash_attention)
-    log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot, training: "
-        f"{time.monotonic() - t:.1f} s")
+    phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
+                    get_config, frontend, mel)
+    log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot, training, int8 "
+        f"rungs: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     counters = [r["counter"] for r in rows]
     n_layer = get_config("large-v3").n_text_layer
-    _, eng = phase_main_path(WhisperEngine, whisper, counters, n_layer)
+    eng = WhisperEngine("large-v3", dtype="bfloat16", allow_random_init=True)
+    phase_main_path(eng, whisper, counters, n_layer)
     log(f"phase 4 one-shot path: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
@@ -1327,9 +1769,30 @@ def main() -> int:
     log(f"phase 4b decode trace: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
-    launches = phase_serving(eng, longform, whisper, counters, n_layer)
-    del eng
+    launches, _ = phase_serving(eng, longform, whisper, counters, n_layer)
     log(f"phase 4c serving path: {time.monotonic() - t:.1f} s")
+
+    # 4d: the int8 rungs on the same weights: int8 decoder weights and the
+    # W8A8 encoder in the one-shot engine, then the server with an int8
+    # self-cache on them.
+    t = time.monotonic()
+    eng8 = WhisperEngine("large-v3", params=eng.params, quantize_weights=True,
+                         quantize_encoder=True)
+    check(isinstance(eng8.params["decoder"]["layers"]["q_w"], dict)
+          and isinstance(eng8.params["encoder"]["layers"]["q_w"], dict),
+          "the int8 rungs quantized the decoder and encoder weights")
+    log("  int8 rungs: one-shot engine (int8 decoder weights, W8A8 encoder)")
+    phase_main_path(eng8, whisper, counters, n_layer)
+    phase_trace(eng8, decoding, whisper, frontend)
+    phase_int8_encoder(eng, eng8, whisper, frontend)
+    log("  int8 rungs: server with an int8 self-cache on those weights")
+    launches8, flat8 = phase_serving(eng8, longform, whisper, counters,
+                                     n_layer, int8_self_cache=True)
+    for r in int8_rows:
+        r["launches"] = launches8[r["counter"].__name__]
+    int8_rows[1]["self_write_launches"] = n_layer * flat8
+    del eng, eng8
+    log(f"phase 4d int8 rungs: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_cli()
@@ -1341,11 +1804,11 @@ def main() -> int:
     log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows:
+    for r in rows + int8_rows:
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
-                        "launches": launches[fn.__name__],
+                        "launches": r.get("launches", launches[fn.__name__]),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -1355,7 +1818,8 @@ def main() -> int:
                     "split_ms", "on_shared_planes_ms", "fp32_residual_ms",
                     "fp32_residual_bound_ms",
                     "fp32_residual_cuda_core_bound_ms",
-                    "fp32_residual_plain_ms", "fp32_residual_library_ms"):
+                    "fp32_residual_plain_ms", "fp32_residual_library_ms",
+                    "self_write_launches"):
             if key in r:
                 kernels[-1][key] = r[key]
         if "fp32_residual_ms" in r:

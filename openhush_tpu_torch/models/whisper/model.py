@@ -15,9 +15,14 @@ Differences from the reference, each with its reason:
   keys beside it: the same keys, the same math.
 - The decode step's attention (the reference's `_attend_decode_flat*`
   einsums, whose block-diagonal selector is a TPU layout trick) runs on the
-  hand-written decode-attention kernel, ops/decode_attention.py.
-- Not in this slice: the W8A8 encoder and int8 decoder weights, the int8
-  self-cache, and beam groups (`cross_group > 1`).
+  hand-written decode-attention kernel, ops/decode_attention.py; an int8
+  self-cache takes its new keys from the per-head quantize kernel
+  (ops/quantize.py, K and V in one launch) before it is written.
+- The W8A8 encoder's int8 weights are stored column-major in each layer
+  (the same [in, out] values): `torch._int_mm` (cuBLASLt's int8 GEMM)
+  runs several times faster on a column-major second operand on the H100
+  (chip_smoke.py phase 4d times both).
+- Not in this slice: beam groups (`cross_group > 1`).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch.nn.functional as F
 
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.ops.decode_attention import (attend_decode,
-                                                     attend_decode_pipelined)
+                                                     attend_decode_pipelined,
+                                                     div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads_kv
 
@@ -96,15 +102,119 @@ def _gelu_mode() -> str:
 
 
 def _mlp(x, lp):
-    h = _gelu(x @ lp["fc1_w"] + lp["fc1_b"])
-    return h @ lp["fc2_w"] + lp["fc2_b"]
+    h = _gelu(_mm(x, lp["fc1_w"]) + lp["fc1_b"])
+    return _mm(h, lp["fc2_w"]) + lp["fc2_b"]
+
+
+def _unbind(w) -> list:
+    """[L, ...] → L views; an int8 weight {"q": [L, in, out], "s": [L, out]}
+    → L dicts {"q": q[l], "s": s[l]}."""
+    if isinstance(w, dict):
+        return [dict(zip(w, parts))
+                for parts in zip(*(t.unbind(0) for t in w.values()))]
+    return w.unbind(0)
 
 
 def _layers(stacked: dict) -> list[dict]:
     """Stacked {name: [L, ...]} → one {name: view} dict per layer."""
-    views = {name: w.unbind(0) for name, w in stacked.items()}
+    views = {name: _unbind(w) for name, w in stacked.items()}
     n = len(next(iter(views.values())))
     return [{name: v[i] for name, v in views.items()} for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# int8 weights (the reference's int8 rungs)
+# ---------------------------------------------------------------------------
+
+def _mm(x, w):
+    """x @ w for a plain weight, or for an int8 weight {"q": int8 [in, out],
+    "s": fp32 [out]} per output channel: the product of x and the levels
+    with fp32 sums, times the scales in fp32, then cast to x's dtype (the
+    reference's dot with preferred_element_type=f32). On the card a bf16 x
+    takes torch.mm's fp32 output, so nothing rounds to bf16 before the
+    scale; on the CPU the product runs in fp32."""
+    if not isinstance(w, dict):
+        return x @ w
+    q = w["q"].to(x.dtype)
+    if x.dtype == torch.float32:
+        y = x @ q
+    elif x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), q, out_dtype=torch.float32
+                     ).view(*x.shape[:-1], q.shape[-1])
+    else:
+        y = x.float() @ q.float()
+    return (y * w["s"].float()).to(x.dtype)
+
+
+def _quantize_weight(w: torch.Tensor) -> dict:
+    """[..., in, out] → {"q": int8, "s": fp32 [..., out]}: the reference's
+    recipe, scale = max|w| over `in` / 127 (a divide), floored at 1e-10."""
+    w32 = w.float()
+    scale = torch.clamp(div127(w32.abs().amax(dim=-2)), min=1e-10)
+    q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale}
+
+
+def _quantize_layers(params: Params, part: str, column_major: bool
+                     ) -> Params:
+    """params with every `*_w` matrix under params[part]["layers"] int8;
+    leaves that are already dicts stay as they are, so a second call
+    changes nothing."""
+    layers = dict(params[part]["layers"])
+    for name, w in layers.items():
+        if name.endswith("_w") and not isinstance(w, dict):
+            qw = _quantize_weight(w)
+            if column_major:
+                qw["q"] = qw["q"].transpose(-1, -2).contiguous(
+                ).transpose(-1, -2)
+            layers[name] = qw
+    return {**params, part: {**params[part], "layers": layers}}
+
+
+def quantize_decoder_weights(params: Params) -> Params:
+    """Every decoder layer matrix (self, cross and MLP projections, xk_w and
+    xv_w included) int8 with per-output-channel scales; the token and
+    position tables and the layer norms stay dense. The decoder's `_mm`
+    casts the levels to the activation dtype on every call."""
+    return _quantize_layers(params, "decoder", column_major=False)
+
+
+def quantize_encoder_weights(params: Params) -> Params:
+    """Every encoder layer matrix int8, the same recipe, for the W8A8
+    encoder (`encode` takes `_block_i8` when q_w is a dict); the conv stem,
+    positions and layer norms stay dense. Each layer's levels are stored
+    column-major, as `torch._int_mm` takes them fastest on the card."""
+    return _quantize_layers(params, "encoder", column_major=True)
+
+
+def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: x [..., D] → (int8 values, fp32 scales
+    [...]), scale = max|x| * float32(1/127) (a reciprocal multiply),
+    floored at 1e-10. Plain PyTorch, as the reference keeps it in XLA."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1) * torch.tensor(1.0 / 127.0,
+                                                  dtype=torch.float32)
+    safe = torch.clamp(scale, min=1e-10)
+    q = torch.clamp(torch.round(x32 / safe[..., None]), -127, 127)
+    return q.to(torch.int8), safe
+
+
+def _mm_i8(x8: torch.Tensor, xs: torch.Tensor, w: dict) -> torch.Tensor:
+    """int8 x int8 → int32 product (torch._int_mm) with both scale folds:
+    x8 [..., I] with per-row scales xs [...], w {"q": int8 [I, O], "s":
+    fp32 [O]} → fp32 [..., O], folded left to right as the reference does.
+    On the card _int_mm takes more than 16 rows and I, O multiples of 8:
+    other shapes raise."""
+    q = w["q"]
+    x2 = x8.reshape(-1, x8.shape[-1])
+    if x2.is_cuda and not (x2.shape[0] > 16 and x2.shape[1] % 8 == 0
+                           and q.shape[1] % 8 == 0):
+        raise ValueError(f"_mm_i8: the card's int8 GEMM takes more than 16 "
+                         f"rows and inner and output sizes that are multiples "
+                         f"of 8, not [{x2.shape[0]}, {x2.shape[1]}] x "
+                         f"[{q.shape[0]}, {q.shape[1]}]")
+    y = torch._int_mm(x2, q).view(*x8.shape[:-1], q.shape[-1]).float()
+    return y * xs[..., None] * w["s"].float()
 
 
 # ---------------------------------------------------------------------------
@@ -126,16 +236,38 @@ def encode(cfg: WhisperConfig, params: Params, mel: torch.Tensor
     x = x.transpose(1, 2)                                 # [B, T, d]
     x = x + enc["pos_emb"][None, : x.shape[1]].to(x.dtype)
 
-    n_head = cfg.n_audio_head
+    block = _block_i8 if isinstance(enc["layers"]["q_w"], dict) else _block
     for lp in _layers(enc["layers"]):
-        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-        q = _split_heads(h @ lp["q_w"] + lp["q_b"], n_head)
-        k = _split_heads(h @ lp["k_w"], n_head)
-        v = _split_heads(h @ lp["v_w"] + lp["v_b"], n_head)
-        x = x + _merge_heads(flash_attention(q, k, v)) @ lp["o_w"] + lp["o_b"]
-        h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-        x = x + _mlp(h, lp)
+        x = block(x, lp, cfg.n_audio_head)
     return layer_norm(x, enc["ln_post_scale"], enc["ln_post_bias"])
+
+
+def _block(x, lp, n_head):
+    h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    q = _split_heads(h @ lp["q_w"] + lp["q_b"], n_head)
+    k = _split_heads(h @ lp["k_w"], n_head)
+    v = _split_heads(h @ lp["v_w"] + lp["v_b"], n_head)
+    x = x + _merge_heads(flash_attention(q, k, v)) @ lp["o_w"] + lp["o_b"]
+    h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    return x + _mlp(h, lp)
+
+
+def _block_i8(x, lp, n_head):
+    """The W8A8 encoder layer: every projection an int8 x int8 product on
+    per-row quantized activations, one quantize per distinct input (h feeds
+    q, k and v); the residual stream, layer norms, attention (the flash
+    kernel) and GELU stay in x's dtype."""
+    dt = x.dtype
+    h8, hs = _quantize_rows(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]))
+    q = _split_heads((_mm_i8(h8, hs, lp["q_w"]) + lp["q_b"]).to(dt), n_head)
+    k = _split_heads(_mm_i8(h8, hs, lp["k_w"]).to(dt), n_head)
+    v = _split_heads((_mm_i8(h8, hs, lp["v_w"]) + lp["v_b"]).to(dt), n_head)
+    a8, as_ = _quantize_rows(_merge_heads(flash_attention(q, k, v)))
+    x = x + (_mm_i8(a8, as_, lp["o_w"]) + lp["o_b"]).to(dt)
+    h8, hs = _quantize_rows(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]))
+    g = _gelu((_mm_i8(h8, hs, lp["fc1_w"]) + lp["fc1_b"]).to(dt))
+    g8, gs = _quantize_rows(g)
+    return x + (_mm_i8(g8, gs, lp["fc2_w"]) + lp["fc2_b"]).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +283,9 @@ class KVCache:
 
 @dataclasses.dataclass
 class QuantKVCache:
-    """int8 cross-KV with per-(position, head) scales: values [L, B, T, H*Dh]
-    int8, scales [L, B, T, H] fp32. Scales fold into scores and probs, so the
-    int8 values are never dequantized in memory."""
+    """int8 cross-KV, or int8 self-cache, with per-(position, head) scales:
+    values [L, B, T, H*Dh] int8, scales [L, B, T, H] fp32. Scales fold into
+    scores and probs, so the int8 values are never dequantized in memory."""
     k: torch.Tensor        # int8 [L,B,T,H*Dh]
     k_scale: torch.Tensor  # f32  [L,B,T,H]
     v: torch.Tensor        # int8 [L,B,T,H*Dh]
@@ -168,10 +300,24 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def init_quant_kv_cache(cfg: WhisperConfig, batch: int,
+                        max_len: Optional[int] = None,
+                        device=None) -> QuantKVCache:
+    """int8 self-attention cache: init_kv_cache's layout with per-(position,
+    head) scales, zeroed; decode() quantizes the new keys as it writes
+    them."""
+    max_len = max_len or cfg.n_text_ctx
+    shape = (cfg.n_text_layer, batch, max_len, cfg.n_text_state)
+    vals = lambda: torch.zeros(shape, dtype=torch.int8, device=device)
+    scales = lambda: torch.zeros(*shape[:3], cfg.n_text_head,
+                                 dtype=torch.float32, device=device)
+    return QuantKVCache(vals(), scales(), vals(), scales())
+
+
 def _cross_kv_layers(params: Params, audio_features: torch.Tensor):
     for lp in _layers(params["decoder"]["layers"]):
-        yield (audio_features @ lp["xk_w"],
-               audio_features @ lp["xv_w"] + lp["xv_b"])
+        yield (_mm(audio_features, lp["xk_w"]),
+               _mm(audio_features, lp["xv_w"]) + lp["xv_b"])
 
 
 def compute_cross_kv(cfg: WhisperConfig, params: Params,
@@ -227,11 +373,42 @@ def _attend_views(q4, k4, v4, mask, *, ks=None, vs=None):
 # Decoder
 # ---------------------------------------------------------------------------
 
-def _cross(cross_kv, l):
-    if isinstance(cross_kv, QuantKVCache):
-        return (cross_kv.k[l], cross_kv.v[l], cross_kv.k_scale[l],
-                cross_kv.v_scale[l])
-    return cross_kv.k[l], cross_kv.v[l], None, None
+def _kv_at(cache, l):
+    """Layer l of a cache → (k, v, k_scale, v_scale); no scales for a float
+    cache."""
+    if isinstance(cache, QuantKVCache):
+        return cache.k[l], cache.v[l], cache.k_scale[l], cache.v_scale[l]
+    return cache.k[l], cache.v[l], None, None
+
+
+def _new_kv(cache, k_new, v_new, n_head: int):
+    """A layer's new keys and values [B, S, H*Dh] as the self-cache holds
+    them → (k, v, k_scale, v_scale): cast to its dtype, or, in an int8
+    cache, quantized per (row, head) by one launch of the quantize kernel
+    for K and V (the reference's _quantize_heads recipe)."""
+    if not isinstance(cache, QuantKVCache):
+        return k_new.to(cache.k.dtype), v_new.to(cache.v.dtype), None, None
+    B, S, HD = k_new.shape
+    vals = lambda: torch.empty(B, S, HD, dtype=torch.int8,
+                               device=k_new.device)
+    scales = lambda: torch.empty(B, S, n_head, dtype=torch.float32,
+                                 device=k_new.device)
+    k8, ks, v8, vs = vals(), scales(), vals(), scales()
+    quantize_heads_kv(k_new, v_new, n_head, (k8, ks, v8, vs))
+    return k8, v8, ks, vs
+
+
+def _write_self_kv(cache, l, h, lp, n_head: int, write):
+    """Project layer l's new keys and values from h, put them into the
+    self-cache with write(buf, new) (with their scales in an int8 cache)
+    and return the layer's (k, v, k_scale, v_scale)."""
+    bufs = _kv_at(cache, l)
+    new = _new_kv(cache, _mm(h, lp["k_w"]), _mm(h, lp["v_w"]) + lp["v_b"],
+                  n_head)
+    for buf, t in zip(bufs, new):
+        if t is not None:
+            write(buf, t)
+    return bufs
 
 
 def _logits(cfg: WhisperConfig, dec: Params, x: torch.Tensor) -> torch.Tensor:
@@ -268,7 +445,10 @@ def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
     first, then attends with query i seeing the keys before pos_row + i + 1
     (the direct load path, K4); the reference reads the cache as read-only
     (keys before pos_row) and the new keys beside it, causal among
-    themselves, which is the same set of keys and the same math. The
+    themselves, which is the same set of keys and the same math. An int8
+    self-cache (QuantKVCache) gets the new keys' levels and scales from the
+    quantize kernel (K3) and K4 runs its int8 mode, whose prob scale spans
+    the cache and the block together, as the reference's does. The
     cross-attention sees all of cross_kv (the pipelined load path, K5).
     Per-row `pos` ([B] tensor) writes rows past max_len nowhere."""
     _decode_flat_ro.calls += 1
@@ -288,18 +468,17 @@ def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
 
     for l, lp in enumerate(_layers(dec["layers"])):
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-        q = h @ lp["q_w"] + lp["q_b"]                    # [B, S, HD]
-        write(cache.k[l], (h @ lp["k_w"]).to(cache.k.dtype))
-        write(cache.v[l], (h @ lp["v_w"] + lp["v_b"]).to(cache.v.dtype))
-        attn = attend_decode(q, cache.k[l], cache.v[l], lengths, n_head,
+        q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
+        k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
+        attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
                              causal=True)
-        x = x + attn @ lp["o_w"] + lp["o_b"]
+        x = x + _mm(attn, lp["o_w"]) + lp["o_b"]
         h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-        xq = h @ lp["xq_w"] + lp["xq_b"]
-        xk, xv, xks, xvs = _cross(cross_kv, l)
+        xq = _mm(h, lp["xq_w"]) + lp["xq_b"]
+        xk, xv, xks, xvs = _kv_at(cross_kv, l)
         attn = attend_decode_pipelined(xq, xk, xv, None, n_head, ks=xks,
                                        vs=xvs)
-        x = x + attn @ lp["xo_w"] + lp["xo_b"]
+        x = x + _mm(attn, lp["xo_w"]) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x), cache
@@ -312,10 +491,11 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
            pos, cache: KVCache, cross_kv, *, cross_group: int = 1,
            ) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder on `tokens` [B, S] starting at position `pos`,
-    attending to the self-attention cache and the precomputed cross K/V
+    attending to the self-attention cache (KVCache, or the int8
+    QuantKVCache of init_quant_kv_cache) and the precomputed cross K/V
     (KVCache or int8 QuantKVCache). Handles prompt prefill (S > 1) and
-    single-token steps (S = 1). Writes the S new keys and values into
-    `cache` in place.
+    single-token steps (S = 1). Writes the S new keys and values (int8:
+    their levels and scales) into `cache` in place.
 
     `pos` is an int (every row at the same offset: one-shot decode) or an
     integer [B] tensor (continuous batching: every slot at its own offset).
@@ -326,8 +506,6 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     if cross_group != 1:
         raise NotImplementedError("beam groups (cross_group > 1) are not "
                                   "ported yet")
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError("the int8 self-cache is not ported yet")
     dec = params["decoder"]
     B, S = tokens.shape
     n_head = cfg.n_text_head
@@ -363,25 +541,25 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     batch = torch.arange(B, device=x.device)[:, None]
     dh = cfg.n_text_state // n_head
 
+    def write(buf, new):
+        buf[batch, rows] = new
+
     for l, lp in enumerate(_layers(dec["layers"])):
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-        q = h @ lp["q_w"] + lp["q_b"]                    # [B, S, HD]
-        cache.k[l][batch, rows] = (h @ lp["k_w"]).to(cache.k.dtype)
-        cache.v[l][batch, rows] = (h @ lp["v_w"] + lp["v_b"]
-                                   ).to(cache.v.dtype)
+        q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
+        k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
         attn = _attend_views(
-            q.view(B, S, n_head, dh),
-            cache.k[l].view(B, max_len, n_head, dh),
-            cache.v[l].view(B, max_len, n_head, dh), self_mask)
-        x = x + attn @ lp["o_w"] + lp["o_b"]
+            q.view(B, S, n_head, dh), k.view(B, max_len, n_head, dh),
+            v.view(B, max_len, n_head, dh), self_mask, ks=ks, vs=vs)
+        x = x + _mm(attn, lp["o_w"]) + lp["o_b"]
         h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-        xq = h @ lp["xq_w"] + lp["xq_b"]                 # [B, S, HD]
-        xk, xv, xks, xvs = _cross(cross_kv, l)
+        xq = _mm(h, lp["xq_w"]) + lp["xq_b"]             # [B, S, HD]
+        xk, xv, xks, xvs = _kv_at(cross_kv, l)
         T_a = xk.shape[1]
         attn = _attend_views(
             xq.view(B, S, n_head, dh), xk.view(B, T_a, n_head, dh),
             xv.view(B, T_a, n_head, dh), None, ks=xks, vs=xvs)
-        x = x + attn @ lp["xo_w"] + lp["xo_b"]
+        x = x + _mm(attn, lp["xo_w"]) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x), cache

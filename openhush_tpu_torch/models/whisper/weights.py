@@ -49,13 +49,17 @@ def from_numpy_params(tree, dtype: torch.dtype = torch.float32,
                       device=None) -> Params:
     """Nested dict of arrays (numpy, or anything np.asarray takes, e.g. the
     JAX `init_params` output) → the same nesting of torch tensors on
-    `device`, floating arrays cast to `dtype`."""
+    `device`, floating arrays cast to `dtype`. An int8 weight {"q": int8,
+    "s": scales} (the reference's quantize_*_weights) keeps int8 levels
+    and fp32 scales whatever `dtype` is."""
     device = resolve_device(device)
 
-    def walk(node):
+    def walk(node, dt=dtype):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return _to_tensor(node, dtype, device)
+            scale_dt = torch.float32 if set(node) == {"q", "s"} else dt
+            return {k: walk(v, scale_dt if k == "s" else dt)
+                    for k, v in node.items()}
+        return _to_tensor(node, dt, device)
 
     return walk(tree)
 

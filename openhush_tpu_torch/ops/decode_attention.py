@@ -57,12 +57,20 @@ def _exact_pv(p8: torch.Tensor, v4: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 as an IEEE divide on every device. On a CUDA tensor,
+    `x / 127.0` multiplies by a rounded 1/127 instead (PyTorch's rewrite
+    for a host scalar divisor), which moves a scale by one ulp and an int8
+    level at a .5 tie: the reference's recipes divide."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
 def _quantize_query(q3: torch.Tensor, n_head: int):
     """Per-(row, query, head) int8 query quantization of the decode paths:
     max(·, 1e-10) / 127 with a divide (not quantize_heads' recipe)."""
     B, S, HD = q3.shape
     qh = q3.float().view(B, S, n_head, HD // n_head)
-    qscale = torch.clamp(qh.abs().amax(dim=-1), min=1e-10) / 127.0
+    qscale = div127(torch.clamp(qh.abs().amax(dim=-1), min=1e-10))
     q8 = torch.clamp(torch.round(qh / qscale[..., None]), -127, 127)
     return q8, qscale
 
@@ -113,7 +121,7 @@ def attend_decode_plain(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=1)                 # over T
     if quant:
         pv = probs * vs[:, :, None, :]                   # [B, T, S, H]
-        pscale = torch.clamp(pv.amax(dim=1), min=1e-20) / 127.0   # [B, S, H]
+        pscale = div127(torch.clamp(pv.amax(dim=1), min=1e-20))  # [B, S, H]
         p = torch.clamp(torch.round(pv / pscale[:, None]), -127, 127)
         out = _exact_pv(p, v4).float() * pscale[..., None]
     else:

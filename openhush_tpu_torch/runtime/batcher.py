@@ -4,7 +4,9 @@ openhush_tpu/runtime/batcher.py without speculation.
 One decode step advances EVERY active slot by one token; admission and
 eviction happen between steps at fixed shapes. Device state (flat KV layout,
 as models/whisper/model.py):
-  cache_k/v [L, B, T, H*Dh]      per-slot self-attention KV
+  cache_k/v [L, B, T, H*Dh]      per-slot self-attention KV (int8 in the
+  cache_ks/vs [L, B, T, H]         int8 self-cache mode, with fp32 scales;
+                                 [L, B, 1, 1] placeholders otherwise)
   xkv_k/v   [L, B, A, H*Dh] int8 per-slot cross-attention KV, with
   xkv_ks/vs [L, B, A, H]         per-(position, head) fp32 scales
   tokens [B, T]                  prompt + generated ids
@@ -23,9 +25,8 @@ Differences from the reference, each with its reason:
   draws depend only on its own seed, as the reference's per-row keys do;
   they are not the reference's random numbers. The per-slot temperatures and
   generators live on the host.
-- Not ported: draft-model state and `spec_step` (ROADMAP queue A item 13)
-  and the int8 self-cache with its scales (item 10); asking for either
-  raises.
+- Not ported: draft-model state and `spec_step` (ROADMAP queue A item 13);
+  asking for either raises.
 """
 
 from __future__ import annotations
@@ -45,8 +46,10 @@ NEG_INF = decoding.NEG_INF
 
 @dataclasses.dataclass
 class SlotState:
-    cache_k: torch.Tensor
+    cache_k: torch.Tensor        # [L, B, T, H*Dh], int8 in int8 mode
     cache_v: torch.Tensor
+    cache_ks: torch.Tensor       # f32 [L, B, T, H] ([L, B, 1, 1] when fp)
+    cache_vs: torch.Tensor
     xkv_k: torch.Tensor          # int8 [L, B, A, H*Dh]
     xkv_ks: torch.Tensor         # f32  [L, B, A, H]
     xkv_v: torch.Tensor
@@ -73,7 +76,8 @@ class SlotState:
 
 
 def _state_shapes(cfg: WhisperConfig, n_slots: int, dtype: torch.dtype,
-                  max_len: Optional[int], audio_ctx: Optional[int]) -> dict:
+                  int8_self_cache: bool, max_len: Optional[int],
+                  audio_ctx: Optional[int]) -> dict:
     """{field: (shape, dtype)} of every device tensor of SlotState: the one
     source of both init_state's allocation and state_bytes."""
     B = n_slots
@@ -82,8 +86,12 @@ def _state_shapes(cfg: WhisperConfig, n_slots: int, dtype: torch.dtype,
     T = max_len or cfg.n_text_ctx
     A = audio_ctx or cfg.n_audio_ctx
     i64, f32 = torch.int64, torch.float32
+    cache_dt = torch.int8 if int8_self_cache else dtype
+    scales = (L, B, T, H) if int8_self_cache else (L, B, 1, 1)
     shapes = {
-        "cache_k": ((L, B, T, HD), dtype), "cache_v": ((L, B, T, HD), dtype),
+        "cache_k": ((L, B, T, HD), cache_dt),
+        "cache_v": ((L, B, T, HD), cache_dt),
+        "cache_ks": (scales, f32), "cache_vs": (scales, f32),
         # Cross-KV slots are ALWAYS int8 (halves the dominant per-step read).
         "xkv_k": ((L, B, A, HD), torch.int8), "xkv_ks": ((L, B, A, H), f32),
         "xkv_v": ((L, B, A, HD), torch.int8), "xkv_vs": ((L, B, A, H), f32),
@@ -100,9 +108,7 @@ def _state_shapes(cfg: WhisperConfig, n_slots: int, dtype: torch.dtype,
     return shapes
 
 
-def _not_ported(int8_self_cache: bool, draft_cfg) -> None:
-    if int8_self_cache:
-        raise NotImplementedError("the int8 self-cache is not ported yet")
+def _not_ported(draft_cfg) -> None:
     if draft_cfg is not None:
         raise NotImplementedError("speculative serving (draft_cfg) is not "
                                   "ported yet")
@@ -115,8 +121,9 @@ def init_state(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
                draft_cfg: Optional[WhisperConfig] = None,
                device=None) -> SlotState:
     """audio_ctx < n_audio_ctx restricts the encoder context (whisper.cpp's
-    audio_ctx speed knob). `device` None means CUDA."""
-    _not_ported(int8_self_cache, draft_cfg)
+    audio_ctx speed knob). int8_self_cache: the self-cache holds int8
+    levels with per-(position, head) scales. `device` None means CUDA."""
+    _not_ported(draft_cfg)
     device = resolve_device(device)
     sp = WhisperTokenizer(cfg.n_langs).special
     fill = {"tokens": sp.eot, "last_logits": NEG_INF,
@@ -125,7 +132,8 @@ def init_state(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
     tensors = {name: torch.full(shape, fill.get(name, 0), dtype=dt,
                                 device=device)
                for name, (shape, dt) in _state_shapes(
-                   cfg, n_slots, dtype, max_len, audio_ctx).items()}
+                   cfg, n_slots, dtype, int8_self_cache, max_len,
+                   audio_ctx).items()}
     return SlotState(**tensors, temperature=[0.0] * n_slots,
                      rng=[None] * n_slots)
 
@@ -138,10 +146,10 @@ def state_bytes(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
     """Exact device bytes init_state(...) allocates, from the same shape
     table, so the two cannot drift. The server's memory budgeter uses it to
     refuse slot counts that do not fit next to the weights."""
-    _not_ported(int8_self_cache, draft_cfg)
+    _not_ported(draft_cfg)
     total = 0
-    for shape, dt in _state_shapes(cfg, n_slots, dtype, max_len,
-                                   audio_ctx).values():
+    for shape, dt in _state_shapes(cfg, n_slots, dtype, int8_self_cache,
+                                   max_len, audio_ctx).values():
         n = 1
         for d in shape:
             n *= d
@@ -149,8 +157,14 @@ def state_bytes(cfg: WhisperConfig, n_slots: int, dtype=torch.bfloat16,
     return total
 
 
-def _self_cache(state: SlotState) -> whisper.KVCache:
-    return whisper.KVCache(state.cache_k, state.cache_v)
+def _self_cache(state: SlotState, rows=slice(None)):
+    """The decode() self-cache of `rows`: a QuantKVCache in int8 mode."""
+    if state.cache_k.dtype == torch.int8:
+        return whisper.QuantKVCache(state.cache_k[:, rows],
+                                    state.cache_ks[:, rows],
+                                    state.cache_v[:, rows],
+                                    state.cache_vs[:, rows])
+    return whisper.KVCache(state.cache_k[:, rows], state.cache_v[:, rows])
 
 
 def _xkv(state: SlotState, rows=slice(None)) -> whisper.QuantKVCache:
@@ -161,15 +175,15 @@ def _xkv(state: SlotState, rows=slice(None)) -> whisper.QuantKVCache:
 def _prefill_row(cfg: WhisperConfig, params, state: SlotState, slot: int,
                  prompt: Sequence[int], use_timestamps: bool,
                  temperature: float, seed: int) -> None:
-    """Shared tail of admit/readmit: zero the slot's self-cache, prefill the
-    prompt against the cross-KV the slot holds, reset every per-slot
-    field."""
+    """Shared tail of admit/readmit: zero the slot's self-cache (values and
+    scales), prefill the prompt against the cross-KV the slot holds, reset
+    every per-slot field."""
     sp = WhisperTokenizer(cfg.n_langs).special
     dev = state.tokens.device
-    state.cache_k[:, slot].zero_()
-    state.cache_v[:, slot].zero_()
+    for buf in (state.cache_k, state.cache_v, state.cache_ks, state.cache_vs):
+        buf[:, slot].zero_()
     rows = slice(slot, slot + 1)
-    row_cache = whisper.KVCache(state.cache_k[:, rows], state.cache_v[:, rows])
+    row_cache = _self_cache(state, rows)
     p = torch.tensor([list(prompt)], dtype=torch.int64, device=dev)
     logits, _ = whisper.decode(cfg, params, p, 0, row_cache,
                                _xkv(state, rows))

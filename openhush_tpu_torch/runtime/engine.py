@@ -12,8 +12,10 @@ kernel), the cross-KV (int8 on the per-head quantize kernel when the
 weights are bf16, as in production; fp with fp32 weights), language
 detection, then greedy decoding under the temperature ladder.
 
-Not in this slice (NotImplementedError): int8 decoder weights, the W8A8
-encoder, speculative drafts and beam search.
+The int8 rungs resolve as the reference's: int8 decoder weights
+(`quantize_weights`) and the W8A8 encoder (`quantize_encoder`), see
+utils/quant_flags.py. Not in this slice (NotImplementedError): speculative
+drafts and beam search.
 """
 
 from __future__ import annotations
@@ -144,34 +146,26 @@ def default_model_dir() -> str:
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _refuse_unported(quantize_weights, quantize_encoder, draft_model):
-    """Resolve the int8 and draft switches as the reference's engine does
-    (openhush_tpu/runtime/engine.py:189-213, 228-234), and raise at the
-    first one that is on: the port has not ported those modes yet.
-    quantize_weights: the argument, else OPENHUSH_INT8_WEIGHTS (a hard
-    switch both ways), else the int8 rung; quantize_encoder: the argument,
-    else int8_encoder_enabled(); draft_model: the argument, else
-    OPENHUSH_DRAFT_MODEL."""
-    if quantize_weights is None:
-        env_w = os.environ.get("OPENHUSH_INT8_WEIGHTS")
-        quantize_weights = (env_w == "1" if env_w is not None
-                            else int8_rung_enabled())
-    if quantize_weights:
-        raise NotImplementedError(
-            "quantize_weights (int8 decoder weights: the argument, "
-            "OPENHUSH_INT8_WEIGHTS, OPENHUSH_INT8_RUNG or int8_rung.ok) is "
-            "not ported yet (ROADMAP A3)")
-    if quantize_encoder is None:
-        quantize_encoder = int8_encoder_enabled()
-    if quantize_encoder:
-        raise NotImplementedError(
-            "quantize_encoder (the W8A8 encoder: the argument, "
-            "OPENHUSH_INT8_ENCODER or int8_encoder.ok) is not ported yet "
-            "(ROADMAP A3)")
+def _resolve_switches(quantize_weights, quantize_encoder, draft_model
+                      ) -> tuple[bool, bool]:
+    """The int8 switches as the reference's engine resolves them
+    (openhush_tpu/runtime/engine.py:189-213) → (quantize_weights,
+    quantize_encoder). quantize_weights: the argument, else
+    OPENHUSH_INT8_WEIGHTS (a hard switch both ways), else the int8 rung;
+    quantize_encoder: the argument, else int8_encoder_enabled(). A draft
+    model (the argument, else OPENHUSH_DRAFT_MODEL) raises: speculative
+    decoding is not ported yet."""
     if draft_model or os.environ.get("OPENHUSH_DRAFT_MODEL"):
         raise NotImplementedError(
             "draft_model (speculative decoding: the argument or "
             "OPENHUSH_DRAFT_MODEL) is not ported yet (ROADMAP A5)")
+    if quantize_weights is None:
+        env_w = os.environ.get("OPENHUSH_INT8_WEIGHTS")
+        quantize_weights = (env_w == "1" if env_w is not None
+                            else int8_rung_enabled())
+    if quantize_encoder is None:
+        quantize_encoder = int8_encoder_enabled()
+    return bool(quantize_weights), bool(quantize_encoder)
 
 
 class WhisperEngine:
@@ -192,7 +186,8 @@ class WhisperEngine:
                  quantize_encoder: Optional[bool] = None,
                  draft_model: Optional[str] = None,
                  params=None, device=None):
-        _refuse_unported(quantize_weights, quantize_encoder, draft_model)
+        quantize_weights, quantize_encoder = _resolve_switches(
+            quantize_weights, quantize_encoder, draft_model)
         self.device = resolve_device(device)
         self.cfg = get_config(model)
         self.model_name = model
@@ -219,6 +214,13 @@ class WhisperEngine:
                 f"Convert a HF checkpoint with: "
                 f"python -m openhush_tpu.cli model convert {model} "
                 f"--hf-path /path/to/hf_checkpoint")
+        if quantize_weights:
+            # int8 decoder weights, per output channel (the dense leaves
+            # stay shared with the tree they came from).
+            self.params = whisper.quantize_decoder_weights(self.params)
+        if quantize_encoder:
+            # The W8A8 encoder: int8 weights and per-row int8 activations.
+            self.params = whisper.quantize_encoder_weights(self.params)
         self.tokenizer = WhisperTokenizer.for_model(
             model, vocab_dir or os.path.dirname(path))
 

@@ -12,11 +12,13 @@ Both threads launch kernels on the device's current stream (PyTorch's
 default stream unless the caller sets another for both), so every window's
 prepared tensors are written before any step that reads them.
 
+`int8_self_cache` (None: OPENHUSH_INT8_SELF_CACHE, else the combined
+int8 rung or the int8_self_cache.ok marker, as the reference resolves it)
+keeps the slots' self-cache in int8 with per-(position, head) scales.
+
 Differences from the reference: `draft=` (speculative serving, ROADMAP
-queue A item 13) and the int8 self-cache (item 10) raise
-NotImplementedError; `int8_self_cache=None` means off and reads no marker
-file. The memory budgeter reads the card's capacity from
-torch.cuda.mem_get_info.
+queue A item 13) raises NotImplementedError. The memory budgeter reads the
+card's capacity from torch.cuda.mem_get_info.
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ HBM_BUDGET_FRACTION = 0.85
 
 
 def _nbytes(tree) -> int:
+    """Device bytes of a parameter tree: an int8 weight {"q", "s"} counts
+    its levels at one byte and its fp32 scales."""
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
@@ -185,11 +189,7 @@ class EngineServer:
             else:
                 int8_self_cache = (int8_rung_enabled() or os.path.exists(
                     os.path.join(default_model_dir(), SELF_CACHE_MARKER)))
-        if int8_self_cache:
-            raise NotImplementedError(
-                "int8_self_cache (the argument, OPENHUSH_INT8_SELF_CACHE, "
-                "OPENHUSH_INT8_RUNG, int8_rung.ok or int8_self_cache.ok) is "
-                "not ported yet (ROADMAP A3)")
+        self.int8_self_cache = bool(int8_self_cache)
         self.cfg = cfg
         self.params = params
         self.device = _params_device(params)
@@ -206,7 +206,8 @@ class EngineServer:
         # streaming windows need ~chunk_secs*50 encoder positions).
         self.audio_ctx = min(audio_ctx or cfg.n_audio_ctx, cfg.n_audio_ctx)
         self.room_cap = (max_decode_len or cfg.n_text_ctx) - 1
-        self._init_device_state(dtype=dtype, max_len=max_decode_len)
+        self._init_device_state(dtype=dtype, max_len=max_decode_len,
+                                int8_self_cache=self.int8_self_cache)
         # Per-window preprocessing (denoise/normalize/...), applied in prep.
         self.preprocess = preprocess
         # Quality guards: whisper's heuristic ladder applied per window.
@@ -435,11 +436,12 @@ class EngineServer:
 
     # -- internals ---------------------------------------------------------------
 
-    def _init_device_state(self, *, dtype, max_len) -> None:
+    def _init_device_state(self, *, dtype, max_len, int8_self_cache) -> None:
         self._check_hbm_budget(functools.partial(
             batcher.state_bytes, self.cfg, dtype=dtype, max_len=max_len,
-            audio_ctx=self.audio_ctx))
+            audio_ctx=self.audio_ctx, int8_self_cache=int8_self_cache))
         self.state = batcher.init_state(self.cfg, self.n_slots, dtype=dtype,
+                                        int8_self_cache=int8_self_cache,
                                         max_len=max_len,
                                         audio_ctx=self.audio_ctx,
                                         device=self.device)

@@ -6,8 +6,10 @@ The combined int8 rung (int8 decoder weights + int8 self-cache + int8
 cross-KV) and the W8A8 encoder rung each sit behind one flag: an
 environment variable when it is set (``=1`` on, anything else off), else a
 marker file in the models directory that a real-weight WER gate drops
-(tools/checkpoint_gate.py). The port has not ported either rung yet
-(ROADMAP A3): its engine and server raise where a switch resolves to on.
+(tools/checkpoint_gate.py). The engine reads the rung for its int8
+decoder weights and the encoder flag for the W8A8 encoder; the server reads
+the rung, OPENHUSH_INT8_SELF_CACHE or SELF_CACHE_MARKER for its int8
+self-cache.
 """
 
 from __future__ import annotations

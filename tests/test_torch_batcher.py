@@ -207,8 +207,21 @@ def test_state_bytes_and_unported_options(weights_pair):
     assert batcher.state_bytes(CFG, 3, dtype=torch.float32, max_len=64,
                                audio_ctx=200) == allocated
     assert st.xkv_k.shape == (CFG.n_text_layer, 3, 200, CFG.n_text_state)
-    with pytest.raises(NotImplementedError):
-        batcher.init_state(CFG, 2, int8_self_cache=True, device="cpu")
+    L, H = CFG.n_text_layer, CFG.n_text_head
+    assert st.cache_ks.shape == st.cache_vs.shape == (L, 3, 1, 1)
+    # The int8 self-cache: int8 values, [L, B, T, H] fp32 scales, and
+    # state_bytes counts exactly what it allocates.
+    s8 = batcher.init_state(CFG, 3, dtype=torch.float32, max_len=64,
+                            audio_ctx=200, int8_self_cache=True,
+                            device="cpu")
+    assert s8.cache_k.dtype == s8.cache_v.dtype == torch.int8
+    assert s8.cache_ks.shape == s8.cache_vs.shape == (L, 3, 64, H)
+    assert s8.cache_ks.dtype == torch.float32
+    allocated8 = sum(t.numel() * t.element_size()
+                     for t in vars(s8).values() if torch.is_tensor(t))
+    assert batcher.state_bytes(CFG, 3, dtype=torch.float32, max_len=64,
+                               audio_ctx=200,
+                               int8_self_cache=True) == allocated8 < allocated
     with pytest.raises(NotImplementedError):
         batcher.init_state(CFG, 2, draft_cfg=CFG, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -137,9 +137,15 @@ def test_transcribe_validates_and_refuses_unported_options(weights_pair):
         eng.transcribe(np.zeros(10, np.float32))
     with pytest.raises(NotImplementedError):
         eng.transcribe(_speechish(1.0), beam_size=5)
+    # The int8 decoder weights are ported: the engine builds with them
+    # (parity with JAX in tests/test_torch_int8.py); beam search is not.
+    q_eng = engine.WhisperEngine("test", params=params, device="cpu",
+                                 quantize_weights=True)
+    w = q_eng.params["decoder"]["layers"]["q_w"]
+    assert w["q"].dtype == torch.int8 and w["s"].dtype == torch.float32
+    assert q_eng.params["encoder"] is params["encoder"]
     with pytest.raises(NotImplementedError):
-        engine.WhisperEngine("test", params=params, device="cpu",
-                             quantize_weights=True)
+        q_eng.transcribe(_speechish(1.0), beam_size=5)
 
 
 def _run_cli(*args):

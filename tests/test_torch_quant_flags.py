@@ -6,11 +6,16 @@ first.
 - openhush_tpu_torch.utils.quant_flags agrees with
   openhush_tpu.utils.quant_flags;
 - where the reference's WhisperEngine quantizes its decoder or encoder
-  weights or loads a draft model, and where its EngineServer allocates an
-  int8 self-cache, the port's raises NotImplementedError naming that
-  switch (those modes are not ported yet);
+  weights, the port's quantizes the same leaves (scales rtol 1e-6, int8
+  levels within one on at most 1e-3 of the elements: the reference's /127
+  may compile to a reciprocal multiply); where the reference loads a draft
+  model, the port's raises NotImplementedError naming draft_model (not
+  ported yet);
+- where the reference's EngineServer allocates an int8 self-cache, the
+  port's has int8 values and [L, B, T, H] scales, else its fp cache with
+  [L, B, 1, 1] placeholders;
 - where the reference turns none on (a variable's "0" over a marker
-  included), the port builds as it did.
+  included), the port builds on the weights as given.
 """
 
 import jax
@@ -81,9 +86,8 @@ def setting(request, monkeypatch, tmp_path):
     return tmp_path
 
 
-def _has_int8(tree) -> bool:
-    return any(np.asarray(a).dtype == np.int8
-               for a in jax.tree.leaves(tree))
+def _int8_leaves(layers) -> dict:
+    return {name: w for name, w in layers.items() if isinstance(w, dict)}
 
 
 def test_flags_agree_with_the_reference(setting):
@@ -100,17 +104,27 @@ def test_engine_refuses_what_the_reference_turns_on(setting, weights_pair):
     jparams, params = weights_pair
     ref = jax_engine.WhisperEngine("test", params=jparams,
                                    allow_random_init=True)
-    on = [name for name, is_on in (
-        ("quantize_weights", _has_int8(ref.params["decoder"])),
-        ("quantize_encoder", _has_int8(ref.params["encoder"])),
-        ("draft_model", ref.draft_cfg is not None)) if is_on]
     build = lambda: engine.WhisperEngine(  # noqa: E731
         "test", params=params, allow_random_init=True, device="cpu")
-    if on:
-        with pytest.raises(NotImplementedError, match=on[0]):
+    if ref.draft_cfg is not None:
+        with pytest.raises(NotImplementedError, match="draft_model"):
             build()
-    else:
-        eng = build()
+        return
+    eng = build()
+    quantized = False
+    for part in ("decoder", "encoder"):
+        ref_q = _int8_leaves(ref.params[part]["layers"])
+        ours = _int8_leaves(eng.params[part]["layers"])
+        assert set(ours) == set(ref_q), part
+        quantized |= bool(ours)
+        for name, w in ours.items():
+            np.testing.assert_allclose(w["s"].numpy(),
+                                       np.asarray(ref_q[name]["s"]),
+                                       rtol=1e-6)
+            d = np.abs(w["q"].numpy().astype(np.int32)
+                       - np.asarray(ref_q[name]["q"]).astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, name
+    if not quantized:
         assert eng.params is params
 
 
@@ -127,11 +141,15 @@ def test_server_refuses_what_the_reference_turns_on(setting, weights_pair,
     monkeypatch.setattr(jax_server.EngineServer, "_init_device_state", spy)
     jax_server.EngineServer(CFG, jparams, n_slots=2, dtype=jnp.float32,
                             max_decode_len=32)
-    build = lambda: server.EngineServer(  # noqa: E731
-        CFG, params, n_slots=2, dtype=torch.float32, max_decode_len=32)
+    srv = server.EngineServer(CFG, params, n_slots=2, dtype=torch.float32,
+                              max_decode_len=32)
+    L, H = CFG.n_text_layer, CFG.n_text_head
+    assert seen in ([True], [False]) and srv.n_slots == 2
+    assert srv.int8_self_cache == seen[0]
+    st = srv.state
     if seen == [True]:
-        with pytest.raises(NotImplementedError, match="int8_self_cache"):
-            build()
+        assert st.cache_k.dtype == st.cache_v.dtype == torch.int8
+        assert st.cache_ks.shape == st.cache_vs.shape == (L, 2, 32, H)
     else:
-        assert seen == [False]
-        assert build().n_slots == 2
+        assert st.cache_k.dtype == torch.float32
+        assert st.cache_ks.shape == st.cache_vs.shape == (L, 2, 1, 1)
