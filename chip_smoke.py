@@ -34,6 +34,11 @@ Phases, each printing its own lines and its seconds:
      T=128, per-row lengths; B=1, T=448; S=3 causal), each held to itself
      over two launches and timed at B=8 and B=1, and K3 at the write's
      shape ([8, 1, 1280] and [1, 1, 1280] K and V), bit for bit, timed;
+     K4's beam mode (the grouped beam step's self-attention, K=5) under
+     random-parent ancestry masks at G=4, T=128 and G=1, T=448, on bf16
+     caches and on int8 self-caches K3 wrote, against the plain version
+     and itself over two launches, timed beside SDPA with the boolean mask
+     and two bounds (the visible keys, all K*T keys);
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -42,7 +47,10 @@ Phases, each printing its own lines and its seconds:
      first step's gradients); then "tiny" with all three int8 rungs on, the
      card against the CPU: quantized weights, W8A8 features, decoder
      logits and written self-cache over a prefill and 8 steps, and an
-     int8-self-cache server's tokens;
+     int8-self-cache server's tokens; then "tiny" beam search (K=5): the
+     one-shot beam's tokens card against CPU, the grouped beam step
+     against the gather oracle on the card over random parents, and
+     decode(cross_group=5) against the K-tiled cross-KV;
   4. the one-shot path: WhisperEngine("large-v3", bf16, random weights from
      seed 0) transcribes two requests (about 20 s and 45 s of speech-like
      audio), with every kernel's launch count read over exactly that run;
@@ -58,16 +66,25 @@ Phases, each printing its own lines and its seconds:
      column- and row-major levels), then phase 4c's run on a server with
      an int8 self-cache (K3 counted once per layer and flat decoder call
      besides the cross-KV's), its self-cache bytes against bf16;
+  4e. beam search on the bf16 weights (K=5): the one-shot engine with
+     beam_size=5 on the 20 s request (the T=0 rung alone), one window's
+     beam decode on the host clock and traced, then
+     longform.make_server(beam_size=5) with 4 groups on 4 requests of
+     5-45 s, bf16 and int8 self-cache, each with its launch counts held
+     (K4's beam mode = 32 x grouped beam steps), state_bytes beside the
+     allocation and 4 busy groups traced; last, a 1-group server's tokens
+     on one window against the one-shot beam's on its cross-KV;
   5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
-     <wav> --model large-v3 --random-init --format json`, then the same with
-     three WAVs (the serving path: a JSON list);
+     <wav> --model large-v3 --random-init --format json`, the same with
+     `--beam-size 5`, then with three WAVs (the serving path: a JSON list);
   6. the training path: `finetune` on large-v3 in fp32 (random weights from
      seed 0) over two synthetic WAVs, 5 steps, with the launch counts of the
      encoder attention's forward in residual mode (K2) and of its backward
      kernels (K6, K7) read over exactly that run;
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
-int8 self-cache row and K3's write row) and, last,
+int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
+beam-mode row) and, last,
 the `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
@@ -736,6 +753,146 @@ def phase_int8_self_cache(da, quantize):
     return rows
 
 
+BEAM = 5                     # the beam width of the beam phases (K)
+BEAM_GROUPS = 4              # phase 4e's beam server: groups, and requests
+BEAM_SECS = (5.0, 15.0, 30.0, 45.0)
+PROMPT_LEN = 4               # sot, language, task, no/timestamps
+
+
+def beam_masks(G: int, K: int, T: int, pos, gen) -> torch.Tensor:
+    """Ancestry masks [G, K, K*T] as the grouped beam step takes them
+    (test_fuzz.py's recipe): each group's beams inherit a random parent's
+    ancestry at every step from PROMPT_LEN to pos[g], then each beam's own
+    bit at pos[g] is set."""
+    eye = torch.eye(K, dtype=torch.bool)
+    t = torch.arange(T)
+    masks = []
+    for p_g in pos.tolist():
+        anc = eye[:, :, None] & (t < PROMPT_LEN)
+        for p in range(PROMPT_LEN, p_g + 1):
+            anc = anc[torch.randint(0, K, (K,), generator=gen)]
+            anc = anc | (eye[:, :, None] & (t == p))
+        masks.append(anc.reshape(K, K * T))
+    return torch.stack(masks).cuda()
+
+
+def beam_bound(mask, HD: int, H: int, nb: int, all_keys: bool):
+    """The least time for one beam-mode launch (K4): the keys it must read
+    (the union of a group's visible keys, or every one of its K*T keys)
+    with their K and V rows (nb bytes a value; int8 adds 2 x H fp32
+    scales), the mask, the bf16 query and output; 4 x HD operations for
+    each (query, visible key) pair (or every pair)."""
+    G, K, KT = mask.shape
+    keys = G * KT if all_keys else int(mask.any(dim=1).sum())
+    pairs = G * K * KT if all_keys else int(mask.sum())
+    scales = 2 * H * 4 if nb == 1 else 0
+    return bound_ms(keys * (2 * HD * nb + scales) + mask.numel()
+                    + 2 * G * K * HD * 2, 4 * pairs * HD, "fp32")
+
+
+def phase_beam_attention(da, quantize):
+    """K4's beam mode (the grouped beam step's self-attention) at large-v3's
+    width (20 heads, Dh 64, K = 5 beams): G=4 groups over T=128-row caches
+    (the beam server's step) and G=1 over T=448 (the one-shot layout at
+    full context), each on a bf16 cache and on an int8 self-cache whose
+    levels and scales K3 wrote, under random-parent ancestry masks: against
+    the plain version (bf16 outputs 1e-2, as K4's self mode; int8 prob
+    levels within one on <= 1e-3 of the visible keys), and against itself
+    over two launches. Then each is timed over 32 per-layer copies (cold in
+    L2) beside its plain version, SDPA with the boolean mask (bf16) and two
+    bounds: the visible keys' bytes and all K*T keys' bytes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    gen = torch.Generator().manual_seed(SEED + 91)
+    H, D, K = 20, 64, BEAM
+    HD = H * D
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(name="decode_attention_direct_beam",
+               source="openhush_tpu_torch/csrc/decode_attention.cu",
+               replaces="openhush_tpu/ops/decode_attention.py:133",
+               counter=da.attend_decode_beam, library_ms=None)
+    for G, T, key in ((4, 128, ""), (1, 448, "oneshot_")):
+        pos = torch.randint(PROMPT_LEN, T, (G,), generator=gen)
+        mask = beam_masks(G, K, T, pos, gen)
+        q = rnd(G, K, HD).to(torch.bfloat16)
+        kf, vf = (rnd(G, K * T, HD).to(torch.bfloat16) for _ in range(2))
+        k8, v8 = (torch.empty(G, K * T, HD, dtype=torch.int8, device=dev)
+                  for _ in range(2))
+        ks, vs = (torch.empty(G, K * T, H, device=dev) for _ in range(2))
+        quantize.quantize_heads_kv(kf, vf, H, (k8, ks, v8, vs))
+        n_vis = H * int(mask.sum())
+        for mode, (k, v, kw) in (("bf16", (kf, vf, {})),
+                                 ("int8", (k8, v8, dict(ks=ks, vs=vs)))):
+            args = (q, k, v, mask, H)
+            (o, p), (o2, p2) = (da.attend_decode_beam(
+                *args, **kw, return_probs=True) for _ in range(2))
+            plain, p_plain = da.attend_decode_beam_plain(
+                *args, **kw, return_probs=True)
+            torch.cuda.synchronize()
+            what = f"{mode}, G={G}, T={T}, K={K}"
+            check(torch.equal(o, o2) and torch.equal(p, p2),
+                  f"K4 beam mode ({what}): the same bits over two launches")
+            e = (o.float() - plain.float()).abs().max().item()
+            dp = (p - p_plain).abs()
+            if mode == "bf16":
+                tol_ok = e <= 1e-2
+                detail = f"bf16 probs max_abs_err {dp.max().item():.3e}"
+            else:
+                share = dp.ne(0).sum().item() / n_vis
+                tol_ok = e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3
+                detail = (f"int8 prob levels max diff {dp.max().item():.0f} "
+                          f"on {share:.2e} of visible keys (tolerance 1 "
+                          f"level on <= 1e-3)")
+            check(bool((p[~mask[:, :, None, :].expand_as(p)] == 0).all()),
+                  f"K4 beam mode ({what}): no prob on a hidden key")
+            log(f"K4 attend_decode_beam ({what}, ancestry masks from random "
+                f"parents, {int(mask.sum())} visible (query, key) pairs of "
+                f"{mask.numel()}): max_abs_err {e:.3e} (tolerance 1e-2: bf16 "
+                f"outputs); {detail}; the same bits over two launches")
+            check(tol_ok, f"K4 beam mode vs plain ({what})")
+            layers = [(k.clone(), v.clone(), {n: t.clone()
+                                              for n, t in kw.items()})
+                      for _ in range(N_LAYER)]
+            on_layers = lambda fn: rotate([
+                functools.partial(fn, q, kl, vl, mask, H, **kwl)
+                for kl, vl, kwl in layers])
+            ms = time_ms(on_layers(da.attend_decode_beam), iters=2 * N_LAYER)
+            plain_ms = time_ms(on_layers(da.attend_decode_beam_plain))
+            nb = 2 if mode == "bf16" else 1
+            b, by = beam_bound(mask, HD, H, nb, False)
+            b_all = beam_bound(mask, HD, H, nb, True)[0]
+            line = (f"  K4 beam mode {what}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b * 1e3:.3f} us ({by}, the "
+                    f"visible keys), {b_all * 1e3:.3f} us (all K*T keys)")
+            if mode == "bf16":
+                heads = lambda x: x.view(G, -1, H, D).transpose(1, 2)
+                lib = sdpa(heads(q), heads(kf), heads(vf),
+                           attn_mask=mask[:, None])
+                lib_err = (lib.transpose(1, 2).reshape(G, K, HD).float()
+                           - plain.float()).abs().max().item()
+                lib_ms = time_ms(rotate([
+                    functools.partial(sdpa, heads(q), heads(kl), heads(vl),
+                                      attn_mask=mask[:, None])
+                    for kl, vl, _ in layers]), iters=2 * N_LAYER)
+                line += (f", SDPA (boolean mask [G, 1, K, K*T]) {lib_ms:.4f} "
+                         f"ms (max_abs_err vs plain {lib_err:.3e})")
+            log(line)
+            del layers
+            pre = key + ("" if mode == "bf16" else "int8_")
+            if pre == "":
+                row.update(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by, library_ms=lib_ms,
+                           all_keys_bound_ms=b_all)
+            else:
+                row.update({pre + "ms": ms, pre + "plain_ms": plain_ms,
+                            pre + "bound_ms": b,
+                            pre + "all_keys_bound_ms": b_all})
+                if mode == "bf16":
+                    row[pre + "library_ms"] = lib_ms
+    return [row]
+
+
 def phase_flash_backward(fa, k2_row):
     """K2's residual mode (the per-row log-sum-exp), K6 (dK, dV) and K7 (dQ)
     at the large-v3 encoder's shapes (20 heads, T=1500, Dh=64, read through
@@ -1335,6 +1492,94 @@ def phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
               "to a tie")
 
 
+def phase_beam_tiny(beam, decoding, whisper, weights, get_config, frontend,
+                    mel, steps=6):
+    """tiny, fp32, K=5 (K·H = 30: the grouped step): the one-shot beam on
+    the card gives the CPU's tokens from the same weights and the same fp32
+    cross-KV (the CPU's); then the grouped beam step on the card (K4's beam
+    mode) against the gather oracle on the card (the cache rows gathered by
+    parent, a per-row decode step on the K-tiled cross-KV: K4's direct
+    path) over `steps` steps of random parents, 2 groups: logits atol 1e-4
+    (fp32 sums in another order over 4 layers); last, decode(cross_group=K)
+    on the card against the same step on the K-tiled cross-KV (atol
+    1e-5)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("tiny")
+    K = BEAM
+    cpu = weights.init_params(cfg, torch.Generator().manual_seed(SEED + 70),
+                              torch.float32, "cpu")
+    gpu = to_device(cpu, "cuda")
+    from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+    tok = WhisperTokenizer(cfg.n_langs)
+    with torch.inference_mode():
+        windows = torch.stack([torch.from_numpy(mel.pad_or_trim(
+            speechlike(secs, SEED + 71 + i))) for i, secs in
+            enumerate((8.0, 12.0))])
+        feats = whisper.encode(cfg, cpu, frontend.log_mel(windows,
+                                                          cfg.n_mels))
+        xkv = whisper.compute_cross_kv(cfg, cpu, feats)
+        xkv_gpu = whisper.KVCache(xkv.k.cuda(), xkv.v.cuda())
+        opts = decoding.DecodingOptions(language="en", beam_size=K,
+                                        max_new_tokens=32)
+        res = {dev: beam.decode_beam(cfg, params, kv, tok, opts)
+               for dev, params, kv in (("cpu", cpu, xkv),
+                                       ("cuda", gpu, xkv_gpu))}
+    same = np.array_equal(res["cpu"].tokens, res["cuda"].tokens)
+    d_score = np.abs(res["cpu"].avg_logprob - res["cuda"].avg_logprob).max()
+    log(f"  tiny fp32 one-shot beam (K={K}, 2 windows, 32 tokens): card vs "
+        f"CPU tokens {'equal' if same else 'DIFFERENT'}, scores max_abs_err "
+        f"{d_score:.3e} (tolerance 1e-4: fp32 sums of 32 steps' logprobs)")
+    check(same and d_score <= 1e-4, "tiny beam card tokens == CPU tokens")
+
+    # The grouped step against the gather oracle, on the card.
+    G, T = 2, 64
+    prompt = torch.tensor([tok.sot_sequence("en", "transcribe",
+                                            timestamps=False)] * G).cuda()
+    P = prompt.shape[1]
+    gen = torch.Generator().manual_seed(SEED + 72)
+    with torch.inference_mode():
+        cache = whisper.init_kv_cache(cfg, G, torch.float32, T, "cuda")
+        _, cache = whisper.decode(cfg, gpu, prompt, 0, cache, xkv_gpu)
+        cache = beam._tile(cache, K)
+        tiled_prompt = whisper.KVCache(cache.k.clone(), cache.v.clone())
+        oracle = whisper.KVCache(cache.k.clone(), cache.v.clone())
+        tiled = beam._tile(xkv_gpu, K)
+        anc = whisper.beam_ancestry(G, K, T, P, "cuda")
+        err = 0.0
+        for step in range(steps):
+            pos = torch.full((G,), P + step, device="cuda")
+            parents = torch.randint(0, K, (G, K), generator=gen).cuda()
+            tokens = torch.randint(0, cfg.n_vocab, (G, K),
+                                   generator=gen).cuda()
+            anc = whisper.beam_own(beam._gather_beams(anc, parents), pos)
+            lg, cache = whisper.decode_beam_step(
+                cfg, gpu, tokens, pos, cache, anc.view(G, K, K * T), xkv_gpu)
+            flat = (parents + torch.arange(G, device="cuda")[:, None] * K
+                    ).view(-1)
+            oracle = whisper.KVCache(oracle.k[:, flat], oracle.v[:, flat])
+            lo, oracle = whisper.decode(cfg, gpu, tokens.view(G * K, 1),
+                                        pos.repeat_interleave(K), oracle,
+                                        tiled)
+            err = max(err, (lg.view(G * K, -1)[:, :cfg.n_vocab]
+                            - lo[:, -1, :cfg.n_vocab]).abs().max().item())
+    log(f"  tiny fp32 grouped beam step vs gather oracle on the card ({steps} "
+        f"steps of random parents, G={G}, K={K}): logits max_abs_err "
+        f"{err:.3e} (tolerance 1e-4)")
+    check(err <= 1e-4, "tiny grouped beam step vs gather oracle")
+    with torch.inference_mode():
+        toks = torch.randint(0, cfg.n_vocab, (G * K, 1), generator=gen).cuda()
+        pos = torch.full((G * K,), P, device="cuda")
+        step = lambda kv, group: whisper.decode(
+            cfg, gpu, toks, pos, whisper.KVCache(tiled_prompt.k.clone(),
+                                                 tiled_prompt.v.clone()),
+            kv, cross_group=group)[0]
+        err = (step(xkv_gpu, K) - step(tiled, 1)).abs().max().item()
+    log(f"  tiny fp32 decode(cross_group={K}) vs the K-tiled cross-KV on the "
+        f"card: logits max_abs_err {err:.3e} (tolerance 1e-5)")
+    check(err <= 1e-5, "tiny decode(cross_group) vs tiled cross-KV")
+
+
 def check_decode_launches(launches, flat_calls, n_layer, int8_self=None):
     """Every flat decoder call launches K4 (self) and K5 (cross) once per
     decoder layer. With an int8 self-cache, int8_self = (the flat calls
@@ -1397,27 +1642,85 @@ def phase_main_path(eng, whisper, counters, n_layer):
     return launches
 
 
+def busy_steps(srv, n_busy: int, seed: int, unit: str) -> None:
+    """Steady state: n_busy fresh 30 s windows prepared and admitted (every
+    slot or group busy), then a few step dispatches timed on the host
+    clock, then one under a device-only trace: host wall and device busy
+    per decode step, the idle share, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    sids = [srv.open_session() for _ in range(n_busy)]
+    for i, sid in enumerate(sids):
+        srv.submit_window(sid, speechlike(30.0, seed + i), language="en")
+    srv._prepare_many([srv._pending.get_nowait() for _ in sids])
+    srv._admit_pending()
+    check(len(srv._slots) == n_busy, f"{n_busy} {unit} admitted")
+    n = 2
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        srv._step_state()
+    torch.cuda.synchronize()
+    per_step = (time.monotonic() - t0) / (n * srv.inner_steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        srv._step_state()
+        torch.cuda.synchronize()
+        traced = time.monotonic() - t0
+    busy, by_name = device_time(prof)
+    log(f"  {n_busy} busy {unit}: {per_step * 1e3:.2f} ms host wall per "
+        f"decode step untraced ({n} dispatches of {srv.inner_steps} steps)")
+    if busy == 0:
+        log("  serving trace: the profiler saw no device events; device "
+            "time not measured")
+    else:
+        log(f"  traced dispatch of {srv.inner_steps} steps: "
+            f"{traced * 1e3:.1f} ms wall, device busy {busy / 1e3:.2f} ms = "
+            f"{busy / 1e3 / srv.inner_steps:.2f} ms/step, device idle share "
+            f"{1 - busy / 1e6 / traced:.3f}")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+
+
 def phase_serving(eng, longform, whisper, counters, n_layer,
-                  int8_self_cache=False):
+                  int8_self_cache=False, beam_size=None):
     """The serving path: make_server (8 slots) on the engine's weights
     (with an int8 self-cache if asked), transcribe_files on 8 requests of
     5-45 s, with every kernel's launch count read over exactly that run.
     Then 8 fresh windows fill the slots and a few steps run at 8 busy
     slots: timed on the host clock, then under a device-only trace (busy
-    time, idle share). Returns the launches and the flat decoder calls
-    that wrote the self-cache (language detection's run on a bf16 cache of
-    its own)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    time, idle share). With beam_size (phase 4e): a BeamEngineServer of
+    BEAM_GROUPS groups on BEAM_SECS, its state_bytes beside what it
+    allocated, K4's beam-mode launches held to 32 x its grouped beam
+    steps. Returns the launches and the decoder calls that wrote the
+    self-cache (language detection's run on a bf16 cache of its own
+    excepted)."""
     from openhush_tpu_torch.models.whisper import decoding
+    from openhush_tpu_torch.runtime import beam_batcher
+    from openhush_tpu_torch.runtime.beam_server import BeamEngineServer
     cfg, params, tok = eng.cfg, eng.params, eng.tokenizer
-    srv = longform.make_server(cfg, params, tok, n_files=len(SERVE_SECS),
-                               n_slots=SERVE_SLOTS,
+    beam = beam_size is not None
+    secs, n_slots = ((BEAM_SECS, BEAM_GROUPS) if beam
+                     else (SERVE_SECS, SERVE_SLOTS))
+    unit = "beam groups" if beam else "slots"
+    srv = longform.make_server(cfg, params, tok, n_files=len(secs),
+                               n_slots=n_slots, beam_size=beam_size,
                                max_new_tokens=MAX_NEW_TOKENS,
                                dtype=torch.bfloat16, temperatures=(0.0,),
                                int8_self_cache=int8_self_cache)
-    check(srv.n_slots == SERVE_SLOTS, "the budgeter kept 8 slots")
+    check(srv.n_slots == n_slots and isinstance(srv, BeamEngineServer) == beam,
+          f"the budgeter kept {n_slots} {unit}")
     st = srv.state
+    if beam:
+        allocated = sum(t.numel() * t.element_size()
+                        for t in vars(st).values() if torch.is_tensor(t))
+        sb = beam_batcher.state_bytes(
+            cfg, n_slots, beam_size=beam_size, dtype=torch.bfloat16,
+            max_len=st.tokens.shape[2], audio_ctx=srv.audio_ctx,
+            int8_self_cache=int8_self_cache)
+        log(f"  beam server: {n_slots} groups x {beam_size} beams, "
+            f"{st.tokens.shape[2]}-row caches: state_bytes "
+            f"{sb / 2**20:.2f} MiB, allocated {allocated / 2**20:.2f} MiB")
+        check(sb == allocated, "state_bytes == the state's allocation")
     check((st.cache_k.dtype == torch.int8) == int8_self_cache,
           "the server's self-cache dtype")
     if int8_self_cache:
@@ -1427,13 +1730,12 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
         H = st.cache_ks.shape[-1]
         ours = sum(t.numel() * t.element_size() for t in (
             st.cache_k, st.cache_v, st.cache_ks, st.cache_vs))
-        log(f"  int8 self-cache at {B} slots x {T} rows: {ours / 1e6:.2f} MB"
+        log(f"  int8 self-cache at {B} rows x {T}: {ours / 1e6:.2f} MB"
             f" (bf16: {2 * L * B * T * HD * 2 / 1e6:.2f} MB); a slot at 448 "
             f"rows: {2 * L * 448 * HD / 1e6:.2f} MB of levels + "
             f"{2 * L * 448 * H * 4 / 1e6:.2f} MB of scales (bf16: "
             f"{2 * L * 448 * HD * 2 / 1e6:.2f} MB)")
-    requests = [speechlike(secs, SEED + 20 + i)
-                for i, secs in enumerate(SERVE_SECS)]
+    requests = [speechlike(s, SEED + 20 + i) for i, s in enumerate(secs)]
     # Count the cross-KV computations (one K3 launch a layer each) and the
     # language detections (a flat decoder call on a bf16 cache of its own).
     calls = {"xkv": 0, "detect": 0}
@@ -1451,6 +1753,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     for fn in counters:
         fn.launches = 0
     whisper._decode_flat_ro.calls = 0
+    whisper.decode_beam_step.calls = 0
     whisper.compute_cross_kv_quant = counted("xkv", xkv_fn)
     decoding.detect_language_logits = counted("detect", detect_fn)
     try:
@@ -1463,6 +1766,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
         decoding.detect_language_logits = detect_fn
     launches = {fn.__name__: fn.launches for fn in counters}
     flat_calls = whisper._decode_flat_ro.calls
+    beam_calls = whisper.decode_beam_step.calls
     dispatches = srv.step_dispatches
     windows = sum(r.windows for r in results)
     audio_s = sum(len(a) for a in requests) / 16000
@@ -1475,51 +1779,157 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     log(f"  serving: {len(requests)} requests, {windows} windows, "
         f"{audio_s:.0f} s of audio in {wall:.2f} s wall = "
         f"{audio_s / wall:.2f}x realtime; {dispatches} step dispatches "
-        f"({srv.inner_steps} steps each, x{srv.deep_factor} when deep); "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches {launches}")
+        f"({srv.inner_steps} steps each, x{srv.deep_factor} when deep"
+        + (f"; {beam_calls} grouped beam steps" if beam else "")
+        + f"); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches {launches}")
     check(launches["log_mel_energies"] >= 1
           and launches["flash_attention"] >= n_layer
           and launches["quantize_heads_kv"] >= n_layer,
           "K1-K3 ran in the server's window preparation")
-    writes = flat_calls - calls["detect"]
-    check_decode_launches(launches, flat_calls, n_layer,
-                          (writes, calls["xkv"]) if int8_self_cache else None)
-
-    # Steady state: 8 busy slots (prepared and admitted, no step yet).
-    sids = [srv.open_session() for _ in range(SERVE_SLOTS)]
-    for i, sid in enumerate(sids):
-        srv.submit_window(sid, speechlike(30.0, SEED + 40 + i),
-                          language="en")
-    srv._prepare_many([srv._pending.get_nowait() for _ in sids])
-    srv._admit_pending()
-    check(len(srv._slots) == SERVE_SLOTS, "8 slots admitted")
-    n = 2
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for _ in range(n):
-        srv._step_state()
-    torch.cuda.synchronize()
-    per_step = (time.monotonic() - t0) / (n * srv.inner_steps)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        srv._step_state()
-        torch.cuda.synchronize()
-        traced = time.monotonic() - t0
-    busy, by_name = device_time(prof)
-    log(f"  8 busy slots: {per_step * 1e3:.2f} ms host wall per decode step "
-        f"untraced ({n} dispatches of {srv.inner_steps} steps)")
-    if busy == 0:
-        log("  serving trace: the profiler saw no device events; device "
-            "time not measured")
+    writes = flat_calls - calls["detect"] + beam_calls
+    k3 = (writes, calls["xkv"]) if int8_self_cache else None
+    if beam:
+        check_beam_launches(launches, flat_calls, beam_calls, n_layer, k3)
     else:
-        log(f"  traced dispatch of {srv.inner_steps} steps: "
-            f"{traced * 1e3:.1f} ms wall, device busy {busy / 1e3:.2f} ms = "
-            f"{busy / 1e3 / srv.inner_steps:.2f} ms/step, device idle share "
-            f"{1 - busy / 1e6 / traced:.3f}")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+        check_decode_launches(launches, flat_calls, n_layer, k3)
+
+    busy_steps(srv, n_slots, SEED + 40, unit)
     return launches, writes
+
+
+
+
+def check_beam_launches(launches, flat_calls, beam_calls, n_layer,
+                        k3_writes=None):
+    """Every flat decoder call launches K4 (direct) and K5 once a layer,
+    every grouped beam step K4's beam mode and K5 once a layer. With an
+    int8 self-cache, k3_writes = (the decoder calls that wrote it, the
+    cross-KV computations): K3 runs once a layer for each."""
+    k4, k4b = launches["attend_decode"], launches["attend_decode_beam"]
+    k5 = launches["attend_decode_pipelined"]
+    log(f"  flat decoder calls {flat_calls}, grouped beam steps "
+        f"{beam_calls}: K4 launches {k4} (expected {n_layer * flat_calls}), "
+        f"K4 beam-mode launches {k4b} (expected {n_layer} x {beam_calls} = "
+        f"{n_layer * beam_calls}), K5 launches {k5} (expected "
+        f"{n_layer * (flat_calls + beam_calls)})")
+    check(beam_calls > 0 and k4b == n_layer * beam_calls
+          and k4 == n_layer * flat_calls
+          and k5 == n_layer * (flat_calls + beam_calls),
+          "K4's beam mode ran once a layer and grouped beam step, K4 and K5 "
+          "as before")
+    if k3_writes is not None:
+        writes, xkv_calls = k3_writes
+        want = n_layer * (writes + xkv_calls)
+        log(f"  K3 launches {launches['quantize_heads_kv']} (expected "
+            f"{n_layer} x ({writes} decoder calls on the int8 self-cache + "
+            f"{xkv_calls} cross-KV computations) = {want})")
+        check(launches["quantize_heads_kv"] == want,
+              "K3 ran once a layer for each int8 self-cache write and cross-KV")
+
+
+def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
+    """4e: beam search on large-v3 (bf16, int8 cross-KV, the engine's random
+    weights, K = 5). The one-shot engine with beam_size=5 on the 20 s
+    request, the ladder pinned to its T=0 rung (random weights would send
+    the window through the five sampling rungs too); then one window's
+    beam decode (32 steps) on the host clock and under a device-only trace;
+    then longform.make_server(beam_size=5) with 4 groups on 4 requests of
+    5-45 s, and the same server with the int8 self-cache, each with its
+    launch counts held, its state_bytes beside what it allocated, and 4
+    busy groups timed and traced; last, a 1-group server's tokens on one
+    window against the one-shot beam_search_loop on that server's own
+    prepared cross-KV (the same shapes, the same kernels: equal). Returns
+    {launches name: count} of the bf16 server's run, the one-shot's and
+    the int8 server's K4 beam-mode launches."""
+    from openhush_tpu_torch.models.whisper import decoding
+    from openhush_tpu_torch.runtime import engine as eng_mod
+    cfg, params, tok = eng.cfg, eng.params, eng.tokenizer
+    out = {}
+
+    # One-shot, one window of speech-like audio.
+    audio = speechlike(20.0, SEED + 2)
+    ladder = eng_mod.TEMPERATURES
+    eng_mod.TEMPERATURES = (0.0,)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        whisper._decode_flat_ro.calls = 0
+        whisper.decode_beam_step.calls = 0
+        t0 = time.monotonic()
+        r = eng.transcribe(audio, beam_size=BEAM,
+                           max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        eng_mod.TEMPERATURES = ladder
+    launches = {fn.__name__: fn.launches for fn in counters}
+    steps = whisper.decode_beam_step.calls
+    log(f"  one-shot beam (K={BEAM}): 20 s request, {r.windows} window(s), "
+        f"{len(r.segments)} segments, language {r.language}, "
+        f"{len(r.text)} chars; {steps} grouped beam steps; {wall:.2f} s "
+        f"wall = {20.0 / wall:.2f}x realtime, {wall * 1e3 / steps:.2f} ms "
+        f"of wall per beam step (the window's front included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(r.windows == 1 and isinstance(r.text, str), "one-shot beam result")
+    for seg in r.segments:
+        check(0.0 <= seg.start <= seg.end <= 50.0
+              and math.isfinite(seg.avg_logprob), f"segment {seg}")
+    check(launches["quantize_heads_kv"] == n_layer
+          and launches["flash_attention"] == n_layer,
+          "K2 and K3 ran once a layer for the window")
+    check_beam_launches(launches, whisper._decode_flat_ro.calls, steps,
+                        n_layer)
+    out["oneshot"] = launches["attend_decode_beam"]
+
+    # One window's beam decode: host wall and device busy per beam step.
+    phase_trace(eng, decoding, whisper, frontend, beam=beam)
+
+    # The beam server: 4 groups, bf16 and int8 self-cache.
+    for int8_self in (False, True):
+        launches, _ = phase_serving(eng, longform, whisper, counters,
+                                    n_layer, int8_self_cache=int8_self,
+                                    beam_size=BEAM)
+        out["int8_self" if int8_self else "server"] = launches[
+            "attend_decode_beam"]
+
+    # One window: a 1-group server against the one-shot beam on the
+    # server's own prepared cross-KV.
+    srv = longform.make_server(cfg, params, tok, n_files=1, n_slots=1,
+                               beam_size=BEAM, max_new_tokens=MAX_NEW_TOKENS,
+                               dtype=torch.bfloat16, temperatures=(0.0,),
+                               no_speech_threshold=2.0)
+    audio = speechlike(10.0, SEED + 65)
+    sid = srv.open_session()
+    srv.submit_window(sid, audio, language="en")
+    got = None
+    for _ in range(1000):
+        srv.run_once()
+        got = srv.poll(sid)
+        if got is not None:
+            break
+    check(got is not None, "the 1-group beam server finished its window")
+    window = torch.zeros(1, srv.audio_ctx * 2 * 160, device="cuda")
+    window[0, :len(audio)] = torch.from_numpy(audio)
+    prompt = tok.sot_sequence("en", "transcribe")
+    with torch.inference_mode():
+        xkv, _ = srv._prep(window, False)
+        toks, _, lens, _ = beam.beam_search_loop(
+            cfg, params, xkv, torch.tensor([prompt], device="cuda"),
+            srv._suppress, beam_size=BEAM, prompt_len=len(prompt),
+            max_new=srv.room_cap - len(prompt), use_timestamps=True,
+            suppress_blank=True, max_initial_index=50,
+            blank_token=srv._blank_token)
+    P = len(prompt)
+    ref = [int(t) for t in toks[0, P:P + int(lens[0])]
+           if t != tok.special.eot]
+    log(f"  1-group beam server vs one-shot beam on its cross-KV: "
+        f"{len(got.tokens)} tokens, "
+        f"{'equal' if got.tokens == ref else 'DIFFERENT'}")
+    check(got.tokens == ref, "beam server tokens == one-shot beam tokens")
+    return out
 
 
 def phase_int8_encoder(eng, eng8, whisper, frontend):
@@ -1573,12 +1983,13 @@ def phase_int8_encoder(eng, eng8, whisper, frontend):
             f"ms")
 
 
-def phase_trace(eng, decoding, whisper, frontend, steps=32):
-    """Where one window's time goes: its greedy decode (t=0, `steps` tokens),
-    after a warm-up, timed on the host clock, then again under
-    torch.profiler tracing only the device (CUDA kernels and copies), so
-    that the trace adds little host time. Prints host wall per decoder
-    call, device busy time, idle share and the top kernels."""
+def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
+    """Where one window's time goes: its greedy decode (t=0, `steps` tokens;
+    with the `beam` module, its beam decode at K = BEAM), after a warm-up,
+    timed on the host clock, then again under torch.profiler tracing only
+    the device (CUDA kernels and copies), so that the trace adds little
+    host time. Prints host wall per decoder call (grouped beam step),
+    device busy time, idle share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     cfg = eng.cfg
     with torch.inference_mode():
@@ -1590,23 +2001,27 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32):
         torch.cuda.synchronize()
         front_s = time.monotonic() - t0
         opts = decoding.DecodingOptions(language="en", max_new_tokens=steps,
-                                        suppress_blank=False)
-        run = lambda: decoding.decode_greedy(cfg, eng.params, xkv,
-                                             eng.tokenizer, opts)
+                                        suppress_blank=False,
+                                        beam_size=BEAM if beam else None)
+        run = lambda: (beam.decode_beam if beam else decoding.decode_greedy)(
+            cfg, eng.params, xkv, eng.tokenizer, opts)
         run()
+        whisper.decode_beam_step.calls = 0
         torch.cuda.synchronize()
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
         untraced = time.monotonic() - t0
+        beam_steps = whisper.decode_beam_step.calls
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
             res = run()
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-    # Decoder calls: the prefill, then one per sampled token but the last.
-    n = min(steps, int((res.tokens[0, res.prompt_len:]
-                        != eng.tokenizer.special.eot).sum()) + 1)
+    # Decoder calls: the prefill, then one per sampled token but the last;
+    # beam: the grouped beam steps.
+    n = beam_steps or min(steps, int((res.tokens[0, res.prompt_len:]
+                                      != eng.tokenizer.special.eot).sum()) + 1)
     busy, by_name = device_time(prof)
     log(f"  window front (log-mel + encoder + int8 cross-KV): "
         f"{front_s * 1e3:.1f} ms host wall")
@@ -1614,34 +2029,42 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32):
         log("  decode trace: the profiler saw no device events; device "
             "time not measured")
         return
-    log(f"  decode: {n} decoder calls in {untraced * 1e3:.1f} ms host wall "
+    log(f"  {'beam decode' if beam else 'decode'}: {n} "
+        f"{'grouped beam steps' if beam else 'decoder calls'} in "
+        f"{untraced * 1e3:.1f} ms host wall "
         f"untraced = {untraced * 1e3 / n:.2f} ms/call; traced "
         f"{wall * 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms "
         f"= {busy / 1e3 / n:.2f} ms/call; device idle share "
         f"{1 - busy / 1e6 / wall:.3f}; {len(by_name)} kernel names")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8 if beam else 6]
     for name, us in top:
         log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
 
 
 def phase_cli():
-    """The CLI in its own process. OPENHUSH_NO_FALLBACK=1 keeps it to the
-    t=0 rung: on random weights the ladder would run all six."""
+    """The CLI in its own process, on one file (greedy, then --beam-size 5)
+    and on three. OPENHUSH_NO_FALLBACK=1 keeps it to the t=0 rung: on
+    random weights the ladder would run all six."""
     with tempfile.TemporaryDirectory() as tmp:
         from openhush_tpu_torch.audio.wav import save_wav
         wav = os.path.join(tmp, "request.wav")
         save_wav(wav, speechlike(10.0, SEED + 4))
         env = dict(os.environ, PYTHONPATH=ROOT, OPENHUSH_NO_FALLBACK="1")
-        r = subprocess.run(
-            [sys.executable, "-m", "openhush_tpu_torch.cli", "transcribe", wav,
-             "--model", "large-v3", "--random-init", "--format", "json"],
-            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-    check(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-2000:]}")
-    data = json.loads(r.stdout)
-    check(data["model"] == "large-v3" and data["audio_duration_secs"] == 10.0,
-          "CLI JSON")
-    log(f"  CLI: rc 0, language {data['language']}, real_time_factor "
-        f"{data['real_time_factor']:.4f}")
+        for extra in ([], ["--beam-size", str(BEAM)]):
+            what = " ".join(["CLI", *extra])
+            r = subprocess.run(
+                [sys.executable, "-m", "openhush_tpu_torch.cli", "transcribe",
+                 wav, "--model", "large-v3", "--random-init", "--format",
+                 "json", *extra],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=600)
+            check(r.returncode == 0,
+                  f"{what} exit {r.returncode}: {r.stderr[-2000:]}")
+            data = json.loads(r.stdout)
+            check(data["model"] == "large-v3"
+                  and data["audio_duration_secs"] == 10.0, f"{what} JSON")
+            log(f"  {what}: rc 0, language {data['language']}, "
+                f"real_time_factor {data['real_time_factor']:.4f}")
     with tempfile.TemporaryDirectory() as tmp:
         from openhush_tpu_torch.audio.wav import save_wav
         wavs = []
@@ -1703,7 +2126,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from openhush_tpu_torch.models.whisper import decoding, weights
+    from openhush_tpu_torch.models.whisper import beam, decoding, weights
     from openhush_tpu_torch.models.whisper import model as whisper
     from openhush_tpu_torch.models.whisper.config import get_config
     from openhush_tpu_torch.ops import (_build, decode_attention,
@@ -1735,6 +2158,7 @@ def main() -> int:
     rows += phase_decode_attention(decode_attention, quantize)
     rows += phase_flash_backward(flash_attention, rows[1])
     int8_rows = phase_int8_self_cache(decode_attention, quantize)
+    beam_rows = phase_beam_attention(decode_attention, quantize)
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -1754,8 +2178,10 @@ def main() -> int:
     phase_train_tiny(train, weights, get_config, flash_attention)
     phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
                     get_config, frontend, mel)
+    phase_beam_tiny(beam, decoding, whisper, weights, get_config, frontend,
+                    mel)
     log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot, training, int8 "
-        f"rungs: {time.monotonic() - t:.1f} s")
+        f"rungs, beam: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     counters = [r["counter"] for r in rows]
@@ -1791,8 +2217,19 @@ def main() -> int:
     for r in int8_rows:
         r["launches"] = launches8[r["counter"].__name__]
     int8_rows[1]["self_write_launches"] = n_layer * flat8
-    del eng, eng8
+    del eng8
     log(f"phase 4d int8 rungs: {time.monotonic() - t:.1f} s")
+
+    # 4e: beam search on the same bf16 weights.
+    t = time.monotonic()
+    beam_launches = phase_beam(eng, longform, beam, whisper, frontend,
+                               counters + [decode_attention.attend_decode_beam],
+                               n_layer)
+    beam_rows[0].update(launches=beam_launches["server"],
+                        oneshot_launches=beam_launches["oneshot"],
+                        int8_self_launches=beam_launches["int8_self"])
+    del eng
+    log(f"phase 4e beam search: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_cli()
@@ -1804,11 +2241,12 @@ def main() -> int:
     log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows + int8_rows:
+    for r in rows + int8_rows + beam_rows:
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
-                        "launches": r.get("launches", launches[fn.__name__]),
+                        "launches": (r["launches"] if "launches" in r
+                                     else launches[fn.__name__]),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -1819,7 +2257,12 @@ def main() -> int:
                     "fp32_residual_bound_ms",
                     "fp32_residual_cuda_core_bound_ms",
                     "fp32_residual_plain_ms", "fp32_residual_library_ms",
-                    "self_write_launches"):
+                    "self_write_launches", "all_keys_bound_ms",
+                    "oneshot_launches", "int8_self_launches", *(
+                        pre + name for pre in ("oneshot_", "int8_",
+                                               "oneshot_int8_")
+                        for name in ("ms", "plain_ms", "bound_ms",
+                                     "all_keys_bound_ms", "library_ms"))):
             if key in r:
                 kernels[-1][key] = r[key]
         if "fp32_residual_ms" in r:

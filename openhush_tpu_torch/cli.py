@@ -2,12 +2,13 @@
 the GPU.
 
 Usage: python -m openhush_tpu_torch.cli transcribe FILE [FILE ...]
-[--model large-v3] [--format text|json|srt|vtt|timestamped] [--random-init]
-[--device cpu]
+[--model large-v3] [--format text|json|srt|vtt|timestamped] [--beam-size K]
+[--random-init] [--device cpu]
 
 One file runs the one-shot engine's seek loop; several files run their seek
 loops together through the continuous-batching server
-(runtime/longform.py), as the reference CLI does. The transcript (text
+(runtime/longform.py), as the reference CLI does. --beam-size K runs beam
+search at T=0: the one-shot engine's, or the server's beam groups. The transcript (text
 block, JSON object, or subtitle body; per file, headed, for several files,
 and a JSON list with a "file" key) goes to stdout, with the reference's JSON
 keys (src/main.rs:1028-1036); progress lines go to stderr.
@@ -33,6 +34,7 @@ def _add_transcribe(sub):
                    help="tiny|base|small|medium|large-v2|large-v3|large-v3-turbo")
     p.add_argument("--language", "-l", default=None)
     p.add_argument("--translate", action="store_true")
+    p.add_argument("--beam-size", type=int, default=None)
     p.add_argument("--random-init", action="store_true",
                    help="run with random weights when no checkpoint exists "
                         "(smoke tests only)")
@@ -89,7 +91,8 @@ def cmd_transcribe(args) -> int:
         results = _transcribe_batch(engine, audios, args)
     else:
         results = [engine.transcribe(audios[0], language=args.language,
-                                     translate=args.translate)]
+                                     translate=args.translate,
+                                     beam_size=args.beam_size)]
     transcribe_s = time.monotonic() - t0
 
     payloads = []
@@ -134,11 +137,12 @@ def _transcribe_batch(engine, audios, args):
     """Several files through the continuous-batching server: every file
     runs its own seek loop, one window in flight per file, and the server
     batches the in-flight windows of different files into one decode
-    step."""
+    step; with --beam-size, concurrent beam groups."""
     from openhush_tpu_torch.runtime import longform
 
     server = longform.make_server(engine.cfg, engine.params,
                                   engine.tokenizer, n_files=len(audios),
+                                  beam_size=args.beam_size,
                                   dtype=engine.dtype)
     return longform.transcribe_files(
         server, audios, language=args.language or engine.language or "auto",

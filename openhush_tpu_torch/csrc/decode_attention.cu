@@ -51,6 +51,22 @@
 // rows stream through a ring of 4 stages, V following K into the same
 // slots. The sums run in a fixed order: the same bits on every launch.
 //
+// K4's beam mode (a mask pointer) is the grouped beam step's
+// self-attention, the function of the JAX model's _attend_decode_flat_beam
+// (XLA einsums there, no Pallas kernel): the K beams of a group attend over
+// the group's K cache rows seen as one row of K*T keys (a free view of the
+// row-contiguous [G*K, T, H*64] cache), and query s sees key j iff
+// mask[b, s, j], the beam's ancestry. The caller writes each beam's new key
+// first and sets its own bit, so the mask is the reference's cache mask plus
+// its identity block over the new keys. This first version reads all K*T
+// keys and masks the scores: a masked key scores -inf (exp exactly 0) and
+// adds exact zeros to the value sums. At large-v3's K = 5 and T = 448 that
+// is 2240 keys, streamed through the ring, K times the keys a query can see
+// at most and many more early in a window (PERF.md has both bounds). The
+// mask row is copied to shared memory while the rows are in flight. Reading
+// only the visible rows (a per-position source-row table) is a later
+// redesign.
+//
 // K5 (the int8 cross-attention, T = 1500): a CTA streaming 1500 keys alone
 // keeps too few bytes in flight (at batch 1 that is 20 CTAs on 132 SMs),
 // and the joint prob scale max_t(p*vs) needs the whole row's softmax before
@@ -250,19 +266,20 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // K4's dynamic shared memory: a ring of `ring` passes of rows (a pass is
 // one 16-byte piece per thread; K's rows, then V's, through the same
-// slots), then every key's score and, in QUANT mode, every key's ks and vs.
-template <bool QUANT> __host__ __device__ constexpr size_t direct_tail(int T) {
-  return (size_t)T * sizeof(float) * (QUANT ? 3 : 1);
+// slots), then every key's score and, in QUANT mode, every key's ks and vs,
+// then, in the beam mode, the query's row of the mask (a byte a key).
+template <bool QUANT> __host__ __device__ constexpr size_t direct_tail(int T, bool masked) {
+  return (size_t)T * sizeof(float) * (QUANT ? 3 : 1) + (masked ? (size_t)(T + 15) / 16 * 16 : 0);
 }
 // The ring's passes for a cache of T rows: K and V of all T rows, rounded
 // up to whole stages, or as many whole stages as MAX_SMEM holds beside the
 // scores (then the rows stream through the ring). Fewer than STAGES: no fit.
-template <typename KV, bool QUANT> int ring_passes(int T) {
+template <typename KV, bool QUANT> int ring_passes(int T, bool masked) {
   using L = Layout<KV>;
   const long long need = 2LL * ((T + L::RPP - 1) / L::RPP);
   const long long want = (need + STAGES - 1) / STAGES * STAGES;
-  const long long room =
-      ((long long)MAX_SMEM - (long long)direct_tail<QUANT>(T)) / PASS_BYTES / STAGES * STAGES;
+  const long long room = ((long long)MAX_SMEM - (long long)direct_tail<QUANT>(T, masked)) /
+                         PASS_BYTES / STAGES * STAGES;
   return (int)(want < room ? want : room);
 }
 
@@ -311,16 +328,24 @@ __device__ __forceinline__ void next_pass(int4*& cur, int& in_stage, int& next, 
 
 // K4: the score of key t from this thread's piece `ch` of its row (every
 // lane calls it; lane c == 0 of the row writes sc[t]); returns the running
-// max of the scores this thread wrote.
+// max of the scores this thread wrote. In the beam mode (mk: the query's
+// row of the mask in shared memory) a key the mask hides scores -inf, so
+// its exp is exactly 0, as the reference's finfo(f32).min fill gives, and
+// it does not enter the max.
 template <typename KV, bool QUANT>
 __device__ __forceinline__ float score_pass(const int4& ch, int t, int n, int c, const float* qw,
                                             const int* q8, const float* kss, float qscale,
-                                            float sm_scale, float* sc, float lmax) {
+                                            float sm_scale, const unsigned char* mk, float* sc,
+                                            float lmax) {
   const float dot = piece_dot<KV, QUANT>(t < n ? ch : make_int4(0, 0, 0, 0), c, qw, q8);
   if (c == 0 && t < n) {
-    const float score = score_of<QUANT>(dot, kss + t, qscale, sm_scale);
-    sc[t] = score;
-    lmax = fmaxf(lmax, score);
+    if (mk && !mk[t]) {
+      sc[t] = -INFINITY;
+    } else {
+      const float score = score_of<QUANT>(dot, kss + t, qscale, sm_scale);
+      sc[t] = score;
+      lmax = fmaxf(lmax, score);
+    }
   }
   return lmax;
 }
@@ -385,8 +410,8 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
                         const KV* __restrict__ v, const float* __restrict__ ks,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
-                        int len_default, int causal, QO* __restrict__ out,
-                        float* __restrict__ probs, int S, int H, int T,
+                        int len_default, int causal, const unsigned char* __restrict__ mask,
+                        QO* __restrict__ out, float* __restrict__ probs, int S, int H, int T,
                         float sm_scale, int ring) {
   using L = Layout<KV>;
   using Acc = typename std::conditional<QUANT, int, float>::type;   // value sums
@@ -396,6 +421,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   float* sc = reinterpret_cast<float*>(smem + (size_t)ring * PASS_BYTES);   // [T]
   float* kss = sc + T;                               // [T], QUANT
   float* vss = kss + T;                              // [T], QUANT
+  unsigned char* mk = reinterpret_cast<unsigned char*>(sc + T * (QUANT ? 3 : 1));  // [T], beam
   __shared__ float qs[WARPS][HEAD_DIM];              // each warp's copy
   __shared__ int q8w[WARPS][HEAD_DIM / 4];
   __shared__ float red_max[WARPS], red_sum[WARPS], red_pv[WARPS];
@@ -457,6 +483,14 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   // stage to ask for once this one has been read (into the same slots).
   int4* cur = slots;
   int in_stage = 0, next = STAGES;
+  // The beam mode: the query's row of the mask, into shared memory while
+  // the rows are in flight (one trip to memory, under theirs).
+  if (mask) {
+    const unsigned char* mrow = mask + ((long long)b * S + s) * T;
+    for (int t = threadIdx.x; t < n; t += THREADS) mk[t] = mrow[t];
+    __syncthreads();
+  }
+  const unsigned char* mvis = mask ? mk : nullptr;
 
   // -- the query, in this warp's copy: fp32 and, QUANT, its int8 levels:
   //    qscale = max(max|q_h|, 1e-10) / 127;  q8 = clip(rint(q_h / qscale)) -----
@@ -487,12 +521,12 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll 4
     for (int p = 0; p < kp; ++p)
       lmax = score_pass<KV, QUANT>(slots[p * THREADS + threadIdx.x], p * L::RPP + r0, n, c, qw,
-                                   q8, kss, qscale, sm_scale, sc, lmax);
+                                   q8, kss, qscale, sm_scale, mvis, sc, lmax);
   } else {
     for (int p = 0; p < kp; ++p) {
       if (in_stage == 0) wait_stage(held);   // this pass's stage has landed
       lmax = score_pass<KV, QUANT>(cur[threadIdx.x], p * L::RPP + r0, n, c, qw, q8, kss, qscale,
-                                   sm_scale, sc, lmax);
+                                   sm_scale, mvis, sc, lmax);
       next_pass<KV, QUANT>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb, kp,
                            n, HD, H);
     }
@@ -521,6 +555,13 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   float l = red_sum[0];
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) l += red_sum[w];
+  if (l == 0.f) {                   // the mask hid every key: callers never
+    cp_async_wait<0>();             // ask (a beam's own key is visible)
+    if (threadIdx.x < HEAD_DIM) store_f32(out + qo_off + threadIdx.x, 0.f);
+    if (pb)
+      for (int t = threadIdx.x; t < T; t += THREADS) pb[t] = 0.f;
+    return;
+  }
   float pscale = 1.f;
   if constexpr (QUANT) {
     float pmax = 0.f;
@@ -941,12 +982,13 @@ int launch_split(const void* q, const void* k, const void* v, const void* ks, co
 template <typename KV, typename QO, bool QUANT, bool SPLIT>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, int len_default, int causal,
-           void* out, void* probs, int B, int S, int H, int T, float sm_scale,
-           cudaStream_t st) {
+           const void* mask, void* out, void* probs, int B, int S, int H, int T,
+           float sm_scale, cudaStream_t st) {
   if (B <= 0 || S <= 0 || H <= 0 || T <= 0 ||
       (SPLIT ? H > 65535 || (long long)S * B > 65535 : S > 65535 || B > 65535))
     return (int)cudaErrorInvalidValue;
   if constexpr (SPLIT) {
+    if (mask) return (int)cudaErrorInvalidValue;      // the beam mode is K4's
     if (smem_split<KV>(T, 1) > MAX_SMEM_SPLIT) return (int)cudaErrorInvalidValue;
     // int8 K/V: two adjacent heads to a cluster when H is even (see the
     // header), one head otherwise.
@@ -961,13 +1003,13 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
     if (attr != cudaSuccess) return (int)attr;
-    const int ring = ring_passes<KV, QUANT>(T);
+    const int ring = ring_passes<KV, QUANT>(T, mask != nullptr);
     if (ring < STAGES) return (int)cudaErrorInvalidValue;
     dim3 grid(H, S, B);
-    kernel<<<grid, THREADS, (size_t)ring * PASS_BYTES + direct_tail<QUANT>(T), st>>>(
-        (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
-        (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T,
-        sm_scale, ring);
+    kernel<<<grid, THREADS, (size_t)ring * PASS_BYTES + direct_tail<QUANT>(T, mask != nullptr),
+             st>>>((const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
+                   (const int*)lengths, len_default, causal, (const unsigned char*)mask,
+                   (QO*)out, (float*)probs, S, H, T, sm_scale, ring);
     return (int)cudaGetLastError();
   }
 }
@@ -975,17 +1017,18 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 template <typename QO, bool SPLIT>
 int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
                 const void* ks, const void* vs, const void* lengths,
-                int len_default, int causal, void* out, void* probs, int B,
-                int S, int H, int T, float sm_scale, cudaStream_t st) {
+                int len_default, int causal, const void* mask, void* out, void* probs,
+                int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
   switch (kv_kind) {
-    case 0: return launch<int8_t, QO, true, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                   causal, out, probs, B, S, H, T, sm_scale, st);
-    case 1: return launch<int8_t, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                    causal, out, probs, B, S, H, T, sm_scale, st);
+    case 0: return launch<int8_t, QO, true, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                   mask, out, probs, B, S, H, T, sm_scale, st);
+    case 1: return launch<int8_t, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                    mask, out, probs, B, S, H, T, sm_scale, st);
     case 2: return launch<__nv_bfloat16, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                           causal, out, probs, B, S, H, T, sm_scale, st);
-    case 3: return launch<float, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                   causal, out, probs, B, S, H, T, sm_scale, st);
+                                                           causal, mask, out, probs, B, S, H, T,
+                                                           sm_scale, st);
+    case 3: return launch<float, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                   mask, out, probs, B, S, H, T, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -997,27 +1040,30 @@ int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
 // (kv_kind 0), int8 taken as plain numbers (1), bf16 (2) or fp32 (3).
 // lengths: int32 [B] or null (then every row has len_default).
 // Query s of row b sees keys t < lengths[b] + (causal ? s : 0), at most T.
+// mask: null, or the beam mode (K4 only): uint8 [B, S, T], and key t is
+// visible to query s of row b iff it is nonzero (and t < the length above;
+// the beam mode passes no lengths, len_default T and causal 0).
 // probs: null, or fp32 [B, S, H, T] that takes the probs of the value sum
 // (int8 levels in the int8 mode; 0 past each query's keys), for checks.
 // pipelined: 0 = direct loads (K4), 1 = the cluster split over T (K5).
 extern "C" int oh_decode_attention(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* lengths, int len_default,
-                                   int causal, void* out, void* probs, int B,
-                                   int S, int H, int T, float sm_scale, int kv_kind,
+                                   int causal, const void* mask, void* out, void* probs,
+                                   int B, int S, int H, int T, float sm_scale, int kv_kind,
                                    int qo_kind, int pipelined, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (qo_kind == 0)
     return pipelined
         ? dispatch_kv<float, true>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                   out, probs, B, S, H, T, sm_scale, st)
+                                   mask, out, probs, B, S, H, T, sm_scale, st)
         : dispatch_kv<float, false>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                    out, probs, B, S, H, T, sm_scale, st);
+                                    mask, out, probs, B, S, H, T, sm_scale, st);
   if (qo_kind == 1)
     return pipelined
         ? dispatch_kv<__nv_bfloat16, true>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                           causal, out, probs, B, S, H, T, sm_scale, st)
+                                           causal, mask, out, probs, B, S, H, T, sm_scale, st)
         : dispatch_kv<__nv_bfloat16, false>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                            causal, out, probs, B, S, H, T, sm_scale, st);
+                                            causal, mask, out, probs, B, S, H, T, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,6 +32,8 @@ class DecodingOptions:
     task: str = "transcribe"               # "transcribe" | "translate"
     language: Optional[str] = None          # None → auto-detect
     temperature: float = 0.0
+    beam_size: Optional[int] = None         # None → greedy
+    length_penalty: Optional[float] = None  # None → simple length average
     without_timestamps: bool = False
     max_initial_timestamp: float = 1.0
     suppress_blank: bool = True

@@ -22,7 +22,10 @@ Differences from the reference, each with its reason:
   (the same [in, out] values): `torch._int_mm` (cuBLASLt's int8 GEMM)
   runs several times faster on a column-major second operand on the H100
   (chip_smoke.py phase 4d times both).
-- Not in this slice: beam groups (`cross_group > 1`).
+- The grouped beam step (`decode_beam_step`) writes each beam's new keys
+  first, like the flat step, and attends under one ancestry mask that
+  includes each beam's own new key (the reference's cache mask plus its
+  identity block over the new keys beside the cache), on K4's beam mode.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.ops.decode_attention import (attend_decode,
+                                                     attend_decode_beam,
                                                      attend_decode_pipelined,
                                                      div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
@@ -437,7 +441,7 @@ def _row_writer(pos: torch.Tensor, S: int, max_len: int):
 
 
 def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
-                    pos, cache: KVCache, cross_kv
+                    pos, cache: KVCache, cross_kv, cross_group: int = 1
                     ) -> tuple[torch.Tensor, KVCache]:
     """decode() body for S·H ≤ 128, on the decode-attention kernel.
 
@@ -449,11 +453,24 @@ def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
     self-cache (QuantKVCache) gets the new keys' levels and scales from the
     quantize kernel (K3) and K4 runs its int8 mode, whose prob scale spans
     the cache and the block together, as the reference's does. The
-    cross-attention sees all of cross_kv (the pipelined load path, K5).
-    Per-row `pos` ([B] tensor) writes rows past max_len nowhere."""
+    cross-attention sees all of cross_kv (the pipelined load path, K5);
+    with cross_group > 1 every `cross_group` consecutive rows share one
+    cross-KV row and fold into its query dimension. Per-row `pos` ([B]
+    tensor) writes rows past max_len nowhere."""
     _decode_flat_ro.calls += 1
+    return _flat_layers(cfg, params, x, pos, cache, cross_kv, cross_group)
+
+
+_decode_flat_ro.calls = 0      # flat decoder calls, for launch accounting
+
+
+def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
+                 cache, cross_kv, cross_group: int, anc_mask=None):
+    """The layers of the flat step (_decode_flat_ro) and of the grouped
+    beam step (decode_beam_step, `anc_mask` [G, K, K*T]: the
+    self-attention on K4's beam mode over each group's K cache rows)."""
     dec = params["decoder"]
-    B, S, _ = x.shape
+    B, S, HD = x.shape
     n_head = cfg.n_text_head
     max_len = cache.k.shape[2]
     if torch.is_tensor(pos):
@@ -466,25 +483,114 @@ def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
         def write(buf, new):
             buf[:, pos:pos + n_keep] = new[:, :n_keep]
 
+    # A group's rows as one row of keys (free views of the row-contiguous
+    # cache), and the group's queries folded into the cross-attention's.
+    group = lambda t: None if t is None else t.view(B // cross_group, -1,
+                                                    t.shape[-1])
     for l, lp in enumerate(_layers(dec["layers"])):
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
         q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
-        attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
-                             causal=True)
+        if anc_mask is None:
+            attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
+                                 causal=True)
+        else:
+            attn = attend_decode_beam(group(q), group(k), group(v), anc_mask,
+                                      n_head, ks=group(ks),
+                                      vs=group(vs)).view(B, S, HD)
         x = x + _mm(attn, lp["o_w"]) + lp["o_b"]
         h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
         xq = _mm(h, lp["xq_w"]) + lp["xq_b"]
         xk, xv, xks, xvs = _kv_at(cross_kv, l)
-        attn = attend_decode_pipelined(xq, xk, xv, None, n_head, ks=xks,
-                                       vs=xvs)
+        attn = attend_decode_pipelined(group(xq), xk, xv, None, n_head,
+                                       ks=xks, vs=xvs).view(B, S, HD)
         x = x + _mm(attn, lp["xo_w"]) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x), cache
 
 
-_decode_flat_ro.calls = 0      # flat decoder calls, for launch accounting
+# ---------------------------------------------------------------------------
+# Beam groups
+# ---------------------------------------------------------------------------
+
+LANE = 128
+
+
+def beam_grouped_ok(cfg: WhisperConfig, beam_size: int) -> bool:
+    """True when a K-beam group's K·H score rows fit one 128-lane tile (the
+    reference's gate, model.py:beam_grouped_ok): then the one-shot beam
+    loop and the beam batcher take the grouped step (decode_beam_step),
+    else the K-tiled cross-KV and a parent gather of the cache. A function,
+    looked up at call time, so tests can force the fallback."""
+    return beam_size * cfg.n_text_head <= LANE
+
+
+def beam_ancestry(G: int, K: int, T: int, prompt_len: int,
+                  device=None) -> torch.Tensor:
+    """The ancestry of G freshly prefilled groups, bool [G, K, K, T]: beam
+    i reads its own row's prompt positions (the K rows hold the same
+    prompt)."""
+    eye = torch.eye(K, dtype=torch.bool, device=device)
+    t = torch.arange(T, device=device)
+    return (eye[:, :, None] & (t < prompt_len)).expand(G, K, K, T).clone()
+
+
+def beam_own(anc: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """anc [G, K, K, T] with beam i's own bit set at position pos[g] of its
+    own row: the key decode_beam_step writes there. A pos at or past T sets
+    nothing (that write is dropped too)."""
+    G, K, _, T = anc.shape
+    eye = torch.eye(K, dtype=torch.bool, device=anc.device)
+    at = torch.arange(T, device=anc.device) == pos.view(G, 1, 1, 1)
+    return anc | (eye[None, :, :, None] & at)
+
+
+def decode_beam_step(cfg: WhisperConfig, params: Params,
+                     tokens: torch.Tensor, pos: torch.Tensor, cache,
+                     anc_mask: torch.Tensor, cross_kv
+                     ) -> tuple[torch.Tensor, object]:
+    """One beam-search decode step for G groups of K beams, with no cache
+    reorder and no cross-KV tiling (the reference's decode_beam_step).
+
+    tokens [G, K] (each beam's next token), pos [G] integer tensor (a
+    group's beams advance together), cache [L, G*K, T, H*D] (rows
+    group-major, never permuted; KVCache, or QuantKVCache with [L, G*K, T,
+    H] scales), cross_kv [L, G, A, ...] (one copy a group, fp or int8).
+
+    Beam (g, i)'s new key and value are written at row g*K + i, position
+    pos[g] (in int8 levels and scales by one K3 launch a layer in an int8
+    self-cache), and then the beams attend on K4's beam mode with
+    anc_mask [G, K, K*T]: query i sees flat key j = row*T + t iff it is
+    set. The caller passes the ancestry with each beam's own bit at pos[g]
+    already set (beam_own), which is also the next step's ancestry. That
+    is the reference's key set (its mask over the cache plus the identity
+    block over the new keys beside it) while pos[g] < T. A write at T is
+    dropped, as the reference's mode="drop" drops it, and then the beam does
+    not see its new key where the reference's does: only a frozen group in
+    the beam batcher gets there (prompt_len + max_new == T), and the
+    batcher discards its outputs. The cross-attention runs on K5 with the
+    group's K queries against its one cross-KV row.
+
+    Returns (logits [G, K, n_vocab_padded] fp32, the cache). Requires
+    K·H ≤ 128."""
+    decode_beam_step.calls += 1
+    dec = params["decoder"]
+    G, K = tokens.shape
+    if K * cfg.n_text_head > LANE:
+        raise ValueError(f"K·H = {K * cfg.n_text_head} > {LANE}: the grouped "
+                         f"beam step needs one lane tile")
+    pos = pos.long()
+    # Clamped like the reference's gather of an out-of-range position.
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][
+        pos.clamp(max=cfg.n_text_ctx - 1)][:, None].to(dec["tok_emb"].dtype)
+    logits, cache = _flat_layers(cfg, params, x.view(G * K, 1, -1),
+                                 pos.repeat_interleave(K), cache, cross_kv,
+                                 K, anc_mask)
+    return logits.view(G, K, -1), cache
+
+
+decode_beam_step.calls = 0     # grouped beam steps, for launch accounting
 
 
 def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
@@ -502,13 +608,23 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     Cache key j is visible to a row iff j < its pos, plus the new keys
     causally.
 
+    cross_group > 1 (beam search): every group of `cross_group`
+    consecutive rows shares one cross-KV row (cross_kv batch B /
+    cross_group), read once a group. Requires cross_group · S · H ≤ 128.
+
     Returns (logits [B, S, n_vocab_padded] fp32, the cache)."""
-    if cross_group != 1:
-        raise NotImplementedError("beam groups (cross_group > 1) are not "
-                                  "ported yet")
     dec = params["decoder"]
     B, S = tokens.shape
     n_head = cfg.n_text_head
+    if cross_group > 1:
+        if B % cross_group:
+            raise ValueError(f"batch {B} not divisible by cross_group "
+                             f"{cross_group}")
+        if cross_group * S * n_head > LANE:
+            raise ValueError(
+                f"cross_group·S·H = {cross_group * S * n_head} > {LANE}: "
+                f"grouped cross-attention needs one lane tile (tile the "
+                f"cross-KV per row instead for this beam size)")
     max_len = cache.k.shape[2]
     per_row = torch.is_tensor(pos)
     if per_row and pos.shape != (B,):
@@ -527,7 +643,8 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     x = x + dec["pos_emb"][pos_ids].to(x.dtype)
 
     if S * n_head <= 128:
-        return _decode_flat_ro(cfg, params, x, pos, cache, cross_kv)
+        return _decode_flat_ro(cfg, params, x, pos, cache, cross_kv,
+                               cross_group)
 
     # Long prefill (S·H > 128): write the block into the cache, then attend
     # over the head views with a causal mask, per row. The reference's

@@ -45,8 +45,8 @@ SIGNATURES = {
     "oh_flash_attention_bwd_dq": [_P] * 8 + [_I] * 4
                                  + [ctypes.POINTER(_LL), _F, _I, _P],
     "oh_quantize_heads_kv": [_P] * 6 + [_LL, _I, _I, _P],
-    "oh_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                            _I, _I, _F, _I, _I, _I, _P],
+    "oh_decode_attention": [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 4
+                           + [_F, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -13,12 +13,17 @@ denominator in another order, which can move an int8 prob level at an
 exact .5 tie), but each is within the plain version's tolerance, and K5
 gives the same bits on every launch. The decode step
 (models/whisper/model.py:_decode_flat_ro) runs the self-attention on K4
-and the cross-attention on K5.
+and the cross-attention on K5. `attend_decode_beam` is K4's beam mode: the
+grouped beam step's self-attention (model.py:decode_beam_step), where
+each of a group's K beams sees the keys of the group's K cache rows that
+its ancestry mask selects.
 
-Two functions, each with its plain PyTorch version here:
+Three functions, each with its plain PyTorch version here:
 - `attend_decode_plain` is the production arithmetic of the JAX decode step
   (model.py:_attend_decode_flat, _attend_decode_flat_multi and
   _attend_decode_flat_ro), per query, with per-row key lengths;
+- `attend_decode_beam_plain` is the same arithmetic under an ancestry mask
+  (the JAX model's _attend_decode_flat_beam);
 - `decode_cross_attend_plain` is the TPU kernel's own function: q comes
   pre-scaled, no scales are applied, int8 values are taken as numbers.
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
@@ -101,6 +106,29 @@ def attend_decode_plain(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     max_t(p·vs) / 127. Float: probs are cast to the value dtype before the
     value product. return_probs: also return the probs the value product
     takes, [B, S, H, T] fp32 (int8 levels in the int8 mode), for checks."""
+    mask = _visible(lengths, *q3.shape[:2], k.shape[1], causal, q3.device)
+    return _attend_plain(q3, k, v, mask, n_head, ks, vs, return_probs)
+
+
+def attend_decode_beam_plain(q3: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, anc_mask: torch.Tensor,
+                             n_head: int, *, ks=None, vs=None,
+                             return_probs: bool = False):
+    """The grouped beam step's self-attention: q3 [G, K, H*D], one query a
+    beam; k, v [G, K*T, H*D], the group's K cache rows as one row of keys
+    (int8 with scales ks, vs [G, K*T, H], or float); anc_mask bool
+    [G, K, K*T]: query i sees key j iff anc_mask[g, i, j]. The arithmetic of
+    attend_decode_plain with the reference's finfo(f32).min fill
+    (_attend_decode_flat_beam), whose cache mask and identity block over the
+    new keys are one mask here: the caller writes each beam's new key into
+    the cache first and sets its own bit (model.decode_beam_step)."""
+    return _attend_plain(q3, k, v, anc_mask.transpose(1, 2)[..., None],
+                         n_head, ks, vs, return_probs)
+
+
+def _attend_plain(q3, k, v, mask, n_head: int, ks, vs, return_probs: bool):
+    """attend_decode_plain's arithmetic under `mask` ([B|1, T, S, 1] bool:
+    key t visible to query s of row b; None: every key)."""
     B, S, HD = q3.shape
     D = HD // n_head
     T = k.shape[1]
@@ -115,7 +143,6 @@ def attend_decode_plain(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         scores = torch.einsum("bthd,bshd->btsh", k4.float(),
                               q3.float().view(B, S, n_head, D)) * (D ** -0.5)
-    mask = _visible(lengths, B, S, T, causal, q3.device)
     if mask is not None:
         scores = torch.where(mask, scores, NEG)
     probs = torch.softmax(scores, dim=1)                 # over T
@@ -154,9 +181,11 @@ def decode_cross_attend_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
-            pipelined: bool, name: str, return_probs: bool = False):
+            pipelined: bool, name: str, return_probs: bool = False,
+            mask=None):
     """Check the operands and launch the kernel; returns [B, S, H*D] in
-    q3's dtype (and the probs, as attend_decode_plain)."""
+    q3's dtype (and the probs, as attend_decode_plain). `mask` (K4 only):
+    bool [B, S, T], key t visible to query s of row b iff it is set."""
     B, S, HD = q3.shape
     T = k.shape[1]
     if HD != n_head * HEAD_DIM:
@@ -170,8 +199,10 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
         per = -(-T // CLUSTER)        # 3 KB, the scores, ks and vs
         rows = per * HEAD_DIM * k.element_size()
         fits = rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
-    else:              # every key's score (and ks, vs), one ring of passes
-        tail = T * 4 * (3 if kv_kind == 0 else 1)
+    else:              # every key's score (and ks, vs; the mask's row), one
+        tail = T * 4 * (3 if kv_kind == 0 else 1)      # ring of passes
+        if mask is not None:
+            tail += -(-T // 16) * 16
         fits = tail + STAGES * 2048 <= MAX_SMEM
     if not fits:
         raise ValueError(f"{name}: T={T} keys do not fit the kernel's "
@@ -192,6 +223,11 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
             raise ValueError(f"{name}: lengths must be int32 [{B}]")
         tensors.append(lengths)
         len_ptr = lengths.data_ptr()
+    if mask is not None:
+        if pipelined or mask.dtype != torch.bool or mask.shape != (B, S, T):
+            raise ValueError(f"{name}: the mask must be bool [{B}, {S}, {T}] "
+                             f"on the direct path")
+        tensors.append(mask)
     for t in tensors:
         if t.device != q3.device or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous on "
@@ -206,7 +242,8 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
         q3.data_ptr(), k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if kv_kind == 0 else None,
         vs.data_ptr() if kv_kind == 0 else None,
-        len_ptr, len_default, int(causal), out.data_ptr(),
+        len_ptr, len_default, int(causal),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
         probs.data_ptr() if return_probs else None, B, S, n_head, T,
         sm_scale, kv_kind, _QO[q3.dtype], int(pipelined),
         torch.cuda.current_stream(q3.device).cuda_stream)
@@ -224,7 +261,7 @@ def _no_gradient(name, *tensors):
 
 
 def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
-            return_probs):
+            return_probs, mask=None):
     if q3.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q3.device}")
     if k.dtype == torch.int8:
@@ -235,7 +272,7 @@ def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
         raise ValueError(f"{name}: K/V dtype {k.dtype}")
     return _launch(q3, k, v, lengths, n_head, ks, vs, causal,
                    (q3.shape[-1] // n_head) ** -0.5, kv_kind, pipelined, name,
-                   return_probs)
+                   return_probs, mask)
 
 
 def attend_decode(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -272,6 +309,24 @@ def attend_decode_pipelined(q3: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def attend_decode_beam(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       anc_mask: torch.Tensor, n_head: int, *, ks=None,
+                       vs=None, return_probs: bool = False):
+    """Same function as `attend_decode_beam_plain`. CPU tensors take the
+    plain version; CUDA tensors launch K4's beam mode (the direct path with
+    the mask: every one of the K*T keys read, the hidden ones scored -inf).
+    Every query must see at least one key: the kernel writes zeros where
+    none is visible, the plain version a uniform average."""
+    _no_gradient("attend_decode_beam", q3, k, v, ks, vs)
+    if q3.device.type == "cpu":
+        return attend_decode_beam_plain(q3, k, v, anc_mask, n_head, ks=ks,
+                                        vs=vs, return_probs=return_probs)
+    out = _attend(q3, k, v, None, n_head, ks, vs, False, False,
+                  "attend_decode_beam", return_probs, mask=anc_mask)
+    attend_decode_beam.launches += 1
+    return out
+
+
 def decode_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         n_heads: int, t_actual: int | None = None, *,
                         pipelined: bool = False) -> torch.Tensor:
@@ -298,5 +353,6 @@ def decode_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attend_decode.launches = 0
+attend_decode_beam.launches = 0
 attend_decode_pipelined.launches = 0
 decode_cross_attend.launches = 0

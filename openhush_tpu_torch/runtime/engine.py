@@ -10,12 +10,14 @@ drives at src/engine/whisper.rs:204-305.
 Per window: log-mel on the frontend kernel, the encoder (flash-attention
 kernel), the cross-KV (int8 on the per-head quantize kernel when the
 weights are bf16, as in production; fp with fp32 weights), language
-detection, then greedy decoding under the temperature ladder.
+detection, then decoding under the temperature ladder: beam search at
+T=0 when `transcribe` is given a beam_size (models/whisper/beam.py), else
+greedy; the rungs at T > 0 sample.
 
 The int8 rungs resolve as the reference's: int8 decoder weights
 (`quantize_weights`) and the W8A8 encoder (`quantize_encoder`), see
 utils/quant_flags.py. Not in this slice (NotImplementedError): speculative
-drafts and beam search.
+drafts.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 from openhush_tpu_torch.device import resolve_device
-from openhush_tpu_torch.models.whisper import decoding, model as whisper
+from openhush_tpu_torch.models.whisper import beam, decoding
+from openhush_tpu_torch.models.whisper import model as whisper
 from openhush_tpu_torch.models.whisper.config import get_config
 from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
                                                         init_params, load_npz)
@@ -238,16 +241,21 @@ class WhisperEngine:
                        opts: decoding.DecodingOptions
                        ) -> tuple[decoding.DecodingResult, float, str]:
         """Run decode with whisper's temperature fallback ladder. Returns
-        (result, compression_ratio, text) for batch row 0. Rung i samples
-        from a generator seeded i."""
+        (result, compression_ratio, text) for batch row 0. The T=0 rung runs
+        beam search when opts.beam_size is set; rung i > 0 samples from a
+        generator seeded i."""
         tok = self.tokenizer
         for ti, t in enumerate(TEMPERATURES):
             o = dataclasses.replace(opts, temperature=t,
                                     language=language)
-            result = decoding.decode_greedy(
-                self.cfg, self.params, cross_kv, tok, o,
-                prompt_ids=prompt_ids,
-                rng=torch.Generator(device=self.device).manual_seed(ti))
+            if t == 0.0 and opts.beam_size:
+                result = beam.decode_beam(self.cfg, self.params, cross_kv,
+                                          tok, o, prompt_ids=prompt_ids)
+            else:
+                result = decoding.decode_greedy(
+                    self.cfg, self.params, cross_kv, tok, o,
+                    prompt_ids=prompt_ids,
+                    rng=torch.Generator(device=self.device).manual_seed(ti))
             content = self._content_tokens(result)
             text = tok.decode(content)
             cr = compression_ratio(text)
@@ -285,8 +293,6 @@ class WhisperEngine:
                    ) -> TranscriptionResult:
         """Transcribe mono 16 kHz float32 audio of any length (validated to
         the same limits as the reference FFI guard)."""
-        if beam_size:
-            raise NotImplementedError("beam search is not ported yet")
         t0 = time.monotonic()
         validation.validate_audio(audio)
         language = language if language is not None else self.language
@@ -311,6 +317,7 @@ class WhisperEngine:
 
         opts = decoding.DecodingOptions(
             task=task, without_timestamps=without_timestamps,
+            beam_size=beam_size,
             max_new_tokens=(max_new_tokens
                             or decoding.DecodingOptions.max_new_tokens))
 

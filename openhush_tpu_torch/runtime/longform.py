@@ -10,8 +10,9 @@ Semantics against the one-shot engine (runtime/engine.py:transcribe): the
 same timestamp-pair segment parsing and seek advance (shared code), the
 same temperature ladder and no-speech skip (the server's per-window ladder,
 same thresholds); condition_on_previous_text is OFF (the server admits
-sot-sequence prompts only, whisper.cpp's `no_context`). Beam search through
-the server (`beam_size`) is not ported yet.
+sot-sequence prompts only, whisper.cpp's `no_context`). With `beam_size`
+the server is a BeamEngineServer (runtime/beam_server.py): concurrent
+beam-search groups.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from openhush_tpu_torch.ops import mel as mel_ops
-from openhush_tpu_torch.runtime import batcher, engine
+from openhush_tpu_torch.runtime import batcher, beam_batcher, engine
+from openhush_tpu_torch.runtime.beam_server import BeamEngineServer
 from openhush_tpu_torch.runtime.engine import (
     FRAMES_PER_SECOND, TranscriptionResult, parse_window_segments)
 from openhush_tpu_torch.runtime.server import EngineServer, hbm_fit_count
@@ -144,19 +146,26 @@ def make_server(cfg, params, tokenizer, *, n_files: int,
     """A server sized for a batched long-form job: slots capped by the
     memory budgeter, decode length right-sized to the per-window token
     budget (prompt ≤ 5 + max_new + 1, 64-aligned like the one-shot path).
-    `temperatures` defaults to the engine's ladder."""
-    if beam_size:
-        raise NotImplementedError("beam search through the server is not "
-                                  "ported yet")
+    `temperatures` defaults to the engine's ladder. With `beam_size`, a
+    BeamEngineServer whose n_slots counts beam groups."""
     dtype = dtype or torch.bfloat16
     max_len = min(cfg.n_text_ctx, ((5 + max_new_tokens + 1 + 63) // 64) * 64)
     want = n_slots or min(16, max(1, n_files))
+    temperatures = (engine.TEMPERATURES if temperatures is None
+                    else temperatures)
+    if beam_size:
+        fit = hbm_fit_count(params, functools.partial(
+            beam_batcher.state_bytes, cfg, beam_size=beam_size, dtype=dtype,
+            max_len=max_len))
+        want = max(1, min(want, fit) if fit is not None else want)
+        return BeamEngineServer(
+            cfg, params, beam_size=beam_size, n_slots=want,
+            tokenizer=tokenizer, max_decode_len=max_len,
+            temperatures=temperatures, dtype=dtype, **kw)
     fit = hbm_fit_count(params, functools.partial(
         batcher.state_bytes, cfg, dtype=dtype, max_len=max_len))
     want = max(1, min(want, fit) if fit is not None else want)
     return EngineServer(
         cfg, params, n_slots=want, tokenizer=tokenizer,
-        max_decode_len=max_len,
-        temperatures=(engine.TEMPERATURES if temperatures is None
-                      else temperatures),
+        max_decode_len=max_len, temperatures=temperatures,
         dtype=dtype, max_admissions_per_turn=want, **kw)

@@ -229,8 +229,13 @@ def test_state_bytes_and_unported_options(weights_pair):
     with pytest.raises(NotImplementedError):
         EngineServer(CFG, params, n_slots=2, dtype=torch.float32,
                      draft=(CFG, params))
-    with pytest.raises(NotImplementedError):
-        longform.make_server(CFG, params, None, n_files=2, beam_size=3)
+    # Beam serving is ported (tests/test_torch_beam_server.py).
+    from openhush_tpu_torch.runtime.beam_server import BeamEngineServer
+    srv = longform.make_server(CFG, params, WhisperTokenizer(CFG.n_langs),
+                               n_files=2, beam_size=3, max_new_tokens=8,
+                               dtype=torch.float32)
+    assert isinstance(srv, BeamEngineServer) and srv.beam_size == 3
+    assert srv.n_slots == 2 and srv.state.tokens.shape == (2, 3, 64)
 
 
 def test_hbm_budget(weights_pair, monkeypatch):

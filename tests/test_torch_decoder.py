@@ -199,9 +199,20 @@ def test_cross_kv_quant_is_one_stacked_cache(setup):
 
 
 def test_unported_options_raise(setup):
+    """Beam groups (cross_group > 1) are ported: decode raises the
+    reference's ValueErrors for a batch the group does not divide and for
+    a group past one lane tile (parity in tests/test_torch_beam.py)."""
     _, params, _, xkv = setup
-    cache = model.init_kv_cache(CFG, 2, torch.float32, 8)
-    toks = torch.zeros(2, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        model.decode(CFG, params, toks, 0, cache, _port_cross(xkv["fp"]),
+    cross = _port_cross(xkv["fp"])
+    toks = torch.zeros(3, 1, dtype=torch.long)
+    with pytest.raises(ValueError, match="not divisible"):
+        model.decode(CFG, params, toks, 0,
+                     model.init_kv_cache(CFG, 3, torch.float32, 8),
+                     model.KVCache(cross.k[:, :1], cross.v[:, :1]),
                      cross_group=2)
+    big = 128 // CFG.n_text_head + 1
+    with pytest.raises(ValueError, match="128"):
+        model.decode(CFG, params, torch.zeros(big, 1, dtype=torch.long), 0,
+                     model.init_kv_cache(CFG, big, torch.float32, 8),
+                     model.KVCache(cross.k[:, :1], cross.v[:, :1]),
+                     cross_group=big)

@@ -129,23 +129,31 @@ def test_transcribe_matches_jax_engine(weights_pair, secs, language):
     assert ours.text == ref.text
 
 
-def test_transcribe_validates_and_refuses_unported_options(weights_pair):
+def test_transcribe_validates_and_refuses_unported_options(weights_pair,
+                                                          monkeypatch):
+    """Invalid audio raises; beam search is ported: transcribe(beam_size=3)
+    runs the one-shot beam at T=0 on fp and on int8 decoder weights
+    (parity with JAX in tests/test_torch_beam.py)."""
+    from openhush_tpu_torch.models.whisper import beam
     from openhush_tpu_torch.runtime.validation import AudioValidationError
     _, params = weights_pair
     eng = engine.WhisperEngine("test", params=params, device="cpu")
     with pytest.raises(AudioValidationError):
         eng.transcribe(np.zeros(10, np.float32))
-    with pytest.raises(NotImplementedError):
-        eng.transcribe(_speechish(1.0), beam_size=5)
-    # The int8 decoder weights are ported: the engine builds with them
-    # (parity with JAX in tests/test_torch_int8.py); beam search is not.
     q_eng = engine.WhisperEngine("test", params=params, device="cpu",
                                  quantize_weights=True)
     w = q_eng.params["decoder"]["layers"]["q_w"]
     assert w["q"].dtype == torch.int8 and w["s"].dtype == torch.float32
     assert q_eng.params["encoder"] is params["encoder"]
-    with pytest.raises(NotImplementedError):
-        q_eng.transcribe(_speechish(1.0), beam_size=5)
+    calls = []
+    decode_beam = beam.decode_beam
+    monkeypatch.setattr(beam, "decode_beam", lambda *a, **k: (
+        calls.append(1), decode_beam(*a, **k))[1])
+    for e in (eng, q_eng):
+        r = e.transcribe(_speechish(1.0), language="en", beam_size=3,
+                         max_new_tokens=8)
+        assert r.windows == 1 and isinstance(r.text, str)
+    assert len(calls) == 2
 
 
 def _run_cli(*args):
