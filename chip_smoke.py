@@ -38,7 +38,12 @@ Phases, each printing its own lines and its seconds:
      random-parent ancestry masks at G=4, T=128 and G=1, T=448, on bf16
      caches and on int8 self-caches K3 wrote, against the plain version
      and itself over two launches, timed beside SDPA with the boolean mask
-     and two bounds (the visible keys, all K*T keys);
+     and two bounds (the visible keys, all K*T keys); K4 and K5 at the
+     speculative verify pass's shapes: K4 causal at per-row lengths, S=4 at
+     B=8 over 144 rows (bf16 and int8 self-cache), S=5 at B=1 over 128 and
+     512 rows; K5 with S=4 (B=8) and S=5 (B=1) queries a row on the int8
+     cross-KV and the one-shot draft's S=1 step on a bf16 one; each against
+     the plain version and itself, timed cold beside its bound and SDPA;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -50,7 +55,11 @@ Phases, each printing its own lines and its seconds:
      int8-self-cache server's tokens; then "tiny" beam search (K=5): the
      one-shot beam's tokens card against CPU, the grouped beam step
      against the gather oracle on the card over random parents, and
-     decode(cross_group=5) against the K-tiled cross-KV;
+     decode(cross_group=5) against the K-tiled cross-KV; then "tiny"
+     speculative decoding (a random 1-layer draft, and tiny as its own
+     draft): the one-shot loop's tokens card against CPU and against the
+     card's greedy loop, and a spec server's tokens against a plain
+     server's on the card;
   4. the one-shot path: WhisperEngine("large-v3", bf16, random weights from
      seed 0) transcribes two requests (about 20 s and 45 s of speech-like
      audio), with every kernel's launch count read over exactly that run;
@@ -74,9 +83,20 @@ Phases, each printing its own lines and its seconds:
      (K4's beam mode = 32 x grouped beam steps), state_bytes beside the
      allocation and 4 busy groups traced; last, a 1-group server's tokens
      on one window against the one-shot beam's on its cross-KV;
+  4f. speculative decoding on the bf16 weights with a large-v3-turbo-shaped
+     draft (random weights seeded 1): the one-shot engine on the 20 s
+     request (the T=0 rung alone), its launch counts held to both models'
+     layers; a draft call, a verify call and a greedy step timed on the
+     host clock and traced; greedy, the draft and the self-draft on one
+     window, tokens held to greedy's up to the first near-tie (4x the
+     measured verify-vs-step logit error); a 1-slot spec server with the
+     draft, with spec_force_accept and on the int8 self-cache, state_bytes
+     beside the allocation, launch counts held, tokens held to a plain
+     server's up to the same tie margin;
   5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
      <wav> --model large-v3 --random-init --format json`, the same with
-     `--beam-size 5`, then with three WAVs (the serving path: a JSON list);
+     `--beam-size 5` and with `--draft large-v3-turbo`, then with three
+     WAVs (the serving path: a JSON list);
   6. the training path: `finetune` on large-v3 in fp32 (random weights from
      seed 0) over two synthetic WAVs, 5 steps, with the launch counts of the
      encoder attention's forward in residual mode (K2) and of its backward
@@ -84,7 +104,8 @@ Phases, each printing its own lines and its seconds:
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
-beam-mode row) and, last,
+beam-mode row, from 4f's one-shot speculative engine for the two verify
+rows) and, last,
 the `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
@@ -753,6 +774,162 @@ def phase_int8_self_cache(da, quantize):
     return rows
 
 
+K_SPEC = 4                   # the server's block (EngineServer's k_spec)
+K_ONESHOT = 5                # the one-shot engine's (decode_speculative)
+SPEC_T = 128 + 16            # a spec server's rows: max_decode_len + margin
+
+
+def phase_spec_attention(da, quantize):
+    """K4 and K5 at the speculative verify pass's shapes (large-v3, 20
+    heads, Dh 64), each against the plain version and against itself over
+    two launches, then timed cold (32 per-layer copies) beside its bound
+    (the visible keys' bytes) and, where one exists, SDPA's time. K4: the
+    verify's self-attention, causal at per-row lengths (query s of row b
+    sees fill_b + 1 + s keys): S=4 at B=8 over SPEC_T = 144 rows (the spec
+    server's block, bf16 and the int8 self-cache K3 wrote), S=5 at B=1 over
+    128 rows (the one-shot block) and over 512 (the one-shot cache past
+    n_text_ctx: a 228-token prompt and 219 new tokens). K5: the verify's
+    cross-attention with S queries a row over the int8 cross-KV (T=1500; S=4
+    at B=8, S=5 at B=1), and the one-shot draft's S=1 step over its bf16
+    cross-KV."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    H, D = 20, 64
+    HD = H * D
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def k3_cache(B, T):
+        out = tuple(torch.empty(B, T, *s, dtype=dt, device=dev) for s, dt in (
+            ((HD,), torch.int8), ((H,), torch.float32), ((HD,), torch.int8),
+            ((H,), torch.float32)))
+        k, v = (rnd(B, T, HD).to(torch.bfloat16) for _ in range(2))
+        quantize.quantize_heads_kv(k, v, H, out)
+        return out[0], out[2], out[1], out[3]
+
+    def held(what, fn, q, kv, lengths, causal, n_vis):
+        """fn against the plain version (1e-2 on the bf16 outputs; int8: an
+        int8 prob level within 1 on <= 1e-3 of the visible keys) and
+        against itself over two launches; returns the max abs error."""
+        k, v, ks, vs = kv
+        kw = dict(ks=ks, vs=vs, causal=causal, return_probs=True)
+        (o, p), (o2, p2) = (fn(q, k, v, lengths, H, **kw) for _ in range(2))
+        plain, p_plain = da.attend_decode_plain(q, k, v, lengths, H, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(p, p2),
+              f"{what}: the same bits over two launches")
+        e = (o.float() - plain.float()).abs().max().item()
+        dp = (p - p_plain).abs()
+        if ks is not None:
+            share = dp.ne(0).sum().item() / n_vis
+            log(f"{what}: max_abs_err {e:.3e} (tolerance 1e-2), int8 prob "
+                f"levels max diff {dp.max().item():.0f} on {share:.2e} of "
+                f"visible keys (tolerance 1 level on <= 1e-3); the same "
+                f"bits over two launches")
+            check(e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+                  f"{what} vs plain")
+        else:
+            log(f"{what}: max_abs_err {e:.3e} (tolerance 1e-2: bf16 "
+                f"outputs), probs max_abs_err {dp.max().item():.3e}; the "
+                f"same bits over two launches")
+            check(e <= 1e-2, f"{what} vs plain")
+        return e
+
+    def timings(fn, q, kv, lengths, causal, mask=None):
+        """(kernel, plain, SDPA or None) ms over 32 per-layer copies."""
+        layers = [tuple(None if x is None else x.clone() for x in kv)
+                  for _ in range(N_LAYER)]
+        B = q.shape[0]
+        run = lambda f: rotate([functools.partial(
+            f, q, k, v, lengths, H, ks=ks, vs=vs, causal=causal)
+            for k, v, ks, vs in layers])
+        heads = lambda x: x.view(B, -1, H, D).transpose(1, 2)
+        lib = None
+        if kv[2] is None:
+            lib = time_ms(rotate([functools.partial(
+                sdpa, heads(q), heads(k), heads(v), attn_mask=mask)
+                for k, v, _, _ in layers]), iters=2 * N_LAYER)
+        return (time_ms(run(fn), iters=2 * N_LAYER),
+                time_ms(run(da.attend_decode_plain)), lib)
+
+    # K4: the verify's self-attention.
+    rows = []
+    k4 = dict(name="decode_attention_direct_verify",
+              source="openhush_tpu_torch/csrc/decode_attention.cu",
+              replaces="openhush_tpu/ops/decode_attention.py:133",
+              counter=da.attend_decode)
+    serve_fills = torch.randint(1, 127, (SERVE_SLOTS,), generator=g,
+                                device=dev)
+    for pre, B, S, T, fills, int8 in (
+            ("", SERVE_SLOTS, K_SPEC, SPEC_T, serve_fills, False),
+            ("int8_", SERVE_SLOTS, K_SPEC, SPEC_T, serve_fills, True),
+            ("oneshot_", 1, K_ONESHOT, 128, torch.tensor([100], device=dev),
+             False),
+            ("t512_", 1, K_ONESHOT, 512, torch.tensor([446], device=dev),
+             False)):
+        lengths = (fills + 1).to(torch.int32)
+        q = rnd(B, S, HD).to(torch.bfloat16)
+        kv = (k3_cache(B, T) if int8 else tuple(
+            rnd(B, T, HD).to(torch.bfloat16) for _ in range(2)) + (None, None))
+        vis = [min(int(n) + s, T) for n in lengths for s in range(S)]
+        cache = "int8 self-cache" if int8 else "bf16"
+        rows_at = fills.tolist() if B == 1 else "per row"
+        what = (f"K4 attend_decode (verify: {cache}, B={B}, S={S} causal, "
+                f"T={T}, fills {rows_at})")
+        e = held(what, da.attend_decode, q, kv, lengths, True, H * sum(vis))
+        # Each visible key read once: the block's last query sees them all.
+        n_read = sum(min(int(n) + S - 1, T) for n in lengths)
+        key_bytes = 2 * HD + 2 * H * 4 if int8 else 2 * HD * 2
+        b, by = bound_ms(n_read * key_bytes + 2 * B * S * HD * 2 + 4 * B,
+                         4 * sum(vis) * HD, "fp32")
+        mask = (torch.arange(T, device=dev)[None, None, :]
+                < (lengths[:, None, None] + torch.arange(S, device=dev)[
+                    None, :, None]))[:, None]
+        ms, plain_ms, lib = timings(da.attend_decode, q, kv, lengths, True,
+                                    mask)
+        k4.update({pre + "ms": ms, pre + "plain_ms": plain_ms,
+                   pre + "bound_ms": b, pre + "library_ms": lib})
+        if pre == "":
+            k4.update(max_abs_err=e, bound_by=by)
+        label = pre.rstrip("_") or "serving"
+        log(f"  {label} verify K4: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b * 1e3:.3f} us ({by}), SDPA {lib}")
+    rows.append(k4)
+
+    # K5: the verify's cross-attention (int8), the one-shot draft's (bf16).
+    k5 = dict(name="decode_attention_pipelined_verify",
+              source="openhush_tpu_torch/csrc/decode_attention.cu",
+              replaces="openhush_tpu/ops/decode_attention_dma.py:101",
+              counter=da.attend_decode_pipelined)
+    T = 1500
+    for pre, B, S, int8 in (("", SERVE_SLOTS, K_SPEC, True),
+                            ("oneshot_", 1, K_ONESHOT, True),
+                            ("draft_bf16_", 1, 1, False)):
+        q = rnd(B, S, HD).to(torch.bfloat16)
+        kv = (k3_cache(B, T) if int8 else tuple(
+            rnd(B, T, HD).to(torch.bfloat16) for _ in range(2)) + (None, None))
+        role = "verify, int8" if int8 else "one-shot draft step, bf16"
+        what = (f"K5 attend_decode_pipelined ({role} cross-KV, B={B}, "
+                f"S={S}, T={T})")
+        e = held(what, da.attend_decode_pipelined, q, kv, None, False,
+                 H * B * S * T)
+        esize = 1 if int8 else 2
+        b, by = bound_ms(2 * B * T * HD * esize + (2 * B * T * H * 4 if int8
+                                                   else 0)
+                         + 2 * B * S * HD * 2, 4 * B * S * T * HD, "fp32")
+        ms, plain_ms, lib = timings(da.attend_decode_pipelined, q, kv, None,
+                                    False)
+        k5.update({pre + "ms": ms, pre + "plain_ms": plain_ms,
+                   pre + "bound_ms": b, pre + "library_ms": lib})
+        if pre == "":
+            k5.update(max_abs_err=e, bound_by=by)
+        label = pre.rstrip("_") or "serving"
+        log(f"  {label} K5: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b * 1e3:.3f} us ({by}), SDPA {lib}")
+    rows.append(k5)
+    return rows
+
+
 BEAM = 5                     # the beam width of the beam phases (K)
 BEAM_GROUPS = 4              # phase 4e's beam server: groups, and requests
 BEAM_SECS = (5.0, 15.0, 30.0, 45.0)
@@ -1308,6 +1485,111 @@ def phase_server_tiny(cfg, params, WhisperEngine, EngineServer, decoding,
             check(got[sid] == ref, "server tokens == one-shot tokens")
 
 
+def emitted(res, max_new: int, eot: int) -> int:
+    """Tokens a DecodingResult's rows emitted: each row's content tokens,
+    and its EOT when it ended before max_new."""
+    content = (res.tokens[:, res.prompt_len:] != eot).sum(axis=1)
+    return int(np.minimum(content + 1, max_new).sum())
+
+
+def serve_windows(srv, audios, turns=400):
+    """Every window of `audios` through `srv` (run_once until done) →
+    [content tokens] in order."""
+    sids = [srv.open_session() for _ in audios]
+    for sid, a in zip(sids, audios):
+        srv.submit_window(sid, a, language="en")
+    got = {}
+    for _ in range(turns):
+        srv.run_once()
+        for sid in sids:
+            r = srv.poll(sid)
+            if r is not None:
+                got[sid] = r.tokens
+        if len(got) == len(sids):
+            break
+    check(len(got) == len(sids), "server finished every window")
+    return [got[sid] for sid in sids]
+
+
+def phase_spec_tiny(speculative, decoding, whisper, weights, get_config,
+                    frontend, mel, EngineServer, max_new=32):
+    """tiny, fp32, speculative decoding on the card, with a random 1-layer
+    draft of tiny's width and with tiny as its own draft (whose proposals
+    match, so blocks are accepted several tokens deep): the one-shot
+    speculative loop (K=5, 2 windows) on the card gives the CPU's tokens
+    from the same weights and fp32 cross-KVs (the CPU's), and the card's
+    greedy loop's; then a spec server (spec_policy "always", k_spec 4; 3
+    windows over 2 slots) on the card gives a plain server's tokens."""
+    import dataclasses
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("tiny")
+    dcfg = dataclasses.replace(cfg, name="tiny-draft", n_text_layer=1)
+    cpu = weights.init_params(cfg, torch.Generator().manual_seed(SEED + 80),
+                              torch.float32, "cpu")
+    dcpu = weights.init_params(dcfg, torch.Generator().manual_seed(SEED + 81),
+                               torch.float32, "cpu")
+    gpu, dgpu = to_device(cpu, "cuda"), to_device(dcpu, "cuda")
+    from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+    tok = WhisperTokenizer(cfg.n_langs)
+    cuda = lambda kv: whisper.KVCache(kv.k.cuda(), kv.v.cuda())
+    opts = decoding.DecodingOptions(language="en", max_new_tokens=max_new)
+    loop = speculative.speculative_greedy_loop
+    with torch.inference_mode():
+        windows = torch.stack([torch.from_numpy(mel.pad_or_trim(
+            speechlike(secs, SEED + 82 + i))) for i, secs in
+            enumerate((8.0, 12.0))])
+        feats = whisper.encode(cfg, cpu, frontend.log_mel(windows,
+                                                          cfg.n_mels))
+        xkv = whisper.compute_cross_kv(cfg, cpu, feats)
+        dxkv = whisper.compute_cross_kv(dcfg, dcpu, feats)
+        greedy = decoding.decode_greedy(cfg, gpu, cuda(xkv), tok, opts)
+        for name, dc, dparams, dkv in (("random draft", dcfg, (dcpu, dgpu),
+                                        dxkv),
+                                       ("self-draft", cfg, (cpu, gpu), xkv)):
+            res, verifies = {}, {}
+            for i, (dev, params, kv, dk) in enumerate((
+                    ("cpu", cpu, xkv, dkv), ("cuda", gpu, cuda(xkv),
+                                             cuda(dkv)))):
+                before = loop.verifies
+                res[dev] = speculative.decode_speculative(
+                    cfg, params, dc, dparams[i], kv, dk, tok, opts,
+                    k_spec=K_ONESHOT)
+                verifies[dev] = loop.verifies - before
+            same = np.array_equal(res["cpu"].tokens, res["cuda"].tokens)
+            as_greedy = np.array_equal(res["cuda"].tokens, greedy.tokens)
+            n = emitted(res["cuda"], max_new, tok.special.eot)
+            log(f"  tiny fp32 one-shot speculative ({name}, K={K_ONESHOT}, "
+                f"2 windows, {max_new} tokens): card vs CPU tokens "
+                f"{'equal' if same else 'DIFFERENT'}, card vs the card's "
+                f"greedy {'equal' if as_greedy else 'DIFFERENT'}; {n} "
+                f"tokens emitted over {verifies['cuda']} verify passes of "
+                f"2 rows")
+            check(same and as_greedy and verifies["cpu"] == verifies["cuda"],
+                  f"tiny speculative ({name}): card tokens == CPU tokens == "
+                  f"greedy tokens")
+
+    plen = len(tok.sot_sequence("en", "transcribe"))
+    kw = dict(n_slots=2, inner_steps=8, dtype=torch.float32, tokenizer=tok,
+              max_decode_len=plen + max_new + 1, temperatures=(0.0,),
+              logprob_threshold=-1e9, no_speech_threshold=2.0,
+              max_admissions_per_turn=2)
+    audios = [speechlike(secs, SEED + 84 + i)
+              for i, secs in enumerate((8.0, 12.0, 20.0))]
+    plain = serve_windows(EngineServer(cfg, gpu, **kw), audios)
+    for name, draft in (("random draft", (dcfg, dgpu)),
+                        ("self-draft", (cfg, gpu))):
+        srv = EngineServer(cfg, gpu, draft=draft, spec_policy="always",
+                           k_spec=K_SPEC, **kw)
+        got = serve_windows(srv, audios)
+        n_tok = sum(len(t) for t in got)
+        log(f"  tiny fp32 spec server ({name}, k_spec {K_SPEC}) vs plain "
+            f"server on the card: {n_tok} tokens in {srv.spec_iters} "
+            f"iterations, {'equal' if got == plain else 'DIFFERENT'}")
+        check(srv.spec_iters > 0 and got == plain,
+              f"tiny spec server ({name}) tokens == plain server tokens")
+
+
 def phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
                     get_config, frontend, mel, max_new=32):
     """tiny, fp32, with all three int8 rungs on (int8 decoder weights, the
@@ -1438,10 +1720,10 @@ def phase_int8_tiny(WhisperEngine, EngineServer, batcher, whisper, weights,
           "int8 self-cache servers")
 
     def cpu_prep(windows, detect):
-        kv, probs = srv["cpu"]._prep(windows.cpu(), detect)
+        kv, probs, _ = srv["cpu"]._prep(windows.cpu(), detect)
         return (whisper.QuantKVCache(*(t.cuda() for t in (
             kv.k, kv.k_scale, kv.v, kv.v_scale))),
-            None if probs is None else probs.cuda())
+            None if probs is None else probs.cuda(), None)
 
     srv["cuda"]._prep = cpu_prep
     # The CPU's decision margins, by session: the top two filtered logits
@@ -1580,27 +1862,51 @@ def phase_beam_tiny(beam, decoding, whisper, weights, get_config, frontend,
     check(err <= 1e-5, "tiny decode(cross_group) vs tiled cross-KV")
 
 
-def check_decode_launches(launches, flat_calls, n_layer, int8_self=None):
+def check_decode_launches(launches, flat_calls, n_layer, int8_self=None,
+                          flat_layers=None, draft_layers=None):
     """Every flat decoder call launches K4 (self) and K5 (cross) once per
-    decoder layer. With an int8 self-cache, int8_self = (the flat calls
-    that wrote it, the cross-KV computations) of the same run: K3 runs once
-    per layer for each, the new keys' and the cross K and V's."""
+    decoder layer it runs: flat_layers in all (model._decode_flat_ro.layers
+    of the run). Without a draft every call is the big model's, n_layer
+    layers each; with a draft of draft_layers layers, the two counts split
+    the calls into the big model's and the draft's. With an int8
+    self-cache, int8_self = (the flat calls that wrote it, the cross-KV
+    computations[, the draft's int8 cross-KV computations]) of the same
+    run: K3 runs once per layer for each, the new keys' and the cross K
+    and V's (a draft's cross-KV once per draft layer). Returns (the big
+    model's flat calls, the draft's)."""
+    if flat_layers is None:
+        flat_layers = n_layer * flat_calls
+    draft = 0
+    if draft_layers is not None:
+        draft, rem = divmod(n_layer * flat_calls - flat_layers,
+                            n_layer - draft_layers)
+        check(rem == 0 and 0 < draft < flat_calls,
+              "the flat calls split into the big model's and the draft's")
+    big = flat_calls - draft
     k4 = launches["attend_decode"]
     k5 = launches["attend_decode_pipelined"]
-    log(f"  flat decoder calls {flat_calls}: K4 launches {k4}, K5 launches "
-        f"{k5} (expected {n_layer} x {flat_calls} = {n_layer * flat_calls})")
-    check(flat_calls > 0 and k4 == k5 == n_layer * flat_calls,
-          "K4 and K5 ran once per decoder layer and flat decoder call")
+    log(f"  flat decoder calls {flat_calls} ({big} of the {n_layer}-layer "
+        f"model, {draft} of the draft): K4 launches {k4}, K5 launches {k5} "
+        f"(expected {n_layer} x {big} + {draft_layers or 0} x {draft} = "
+        f"{n_layer * big + (draft_layers or 0) * draft})")
+    check(flat_calls > 0 and flat_layers == n_layer * big
+          + (draft_layers or 0) * draft and k4 == k5 == flat_layers,
+          "K4 and K5 ran once per decoder layer and flat decoder call of "
+          "each model")
     if int8_self is not None:
-        writes, xkv_calls = int8_self
+        writes, xkv_calls, *draft_xkv = int8_self
+        draft_xkv = draft_xkv[0] if draft_xkv else 0
         k3 = launches["quantize_heads_kv"]
-        want = n_layer * (writes + xkv_calls)
+        want = n_layer * (writes + xkv_calls) + (draft_layers or 0) * draft_xkv
         log(f"  K3 launches {k3} (expected {n_layer} x ({writes} flat "
             f"decoder calls on the int8 self-cache + {xkv_calls} cross-KV "
-            f"computations) = {want})")
+            f"computations)"
+            + (f" + {draft_layers} x {draft_xkv} of the draft's cross-KV"
+               if draft_xkv else "") + f" = {want})")
         check(k3 == want, "K3 ran once per decoder layer and flat decoder "
               "call (the int8 self-cache's new keys), and once per layer "
               "and cross-KV computation")
+    return big, draft
 
 
 def phase_main_path(eng, whisper, counters, n_layer):
@@ -1610,7 +1916,7 @@ def phase_main_path(eng, whisper, counters, n_layer):
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
-    whisper._decode_flat_ro.calls = 0
+    whisper._decode_flat_ro.calls = whisper._decode_flat_ro.layers = 0
     t0 = time.monotonic()
     results = [eng.transcribe(a, max_new_tokens=MAX_NEW_TOKENS)
                for a in requests]
@@ -1638,7 +1944,8 @@ def phase_main_path(eng, whisper, counters, n_layer):
           "K2 ran once per encoder layer and window")
     check(launches["quantize_heads_kv"] == n_layer * windows,
           "K3 ran once (K and V) for every decoder layer and window")
-    check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer)
+    check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer,
+                          flat_layers=whisper._decode_flat_ro.layers)
     return launches
 
 
@@ -1752,7 +2059,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
-    whisper._decode_flat_ro.calls = 0
+    whisper._decode_flat_ro.calls = whisper._decode_flat_ro.layers = 0
     whisper.decode_beam_step.calls = 0
     whisper.compute_cross_kv_quant = counted("xkv", xkv_fn)
     decoding.detect_language_logits = counted("detect", detect_fn)
@@ -1792,7 +2099,8 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     if beam:
         check_beam_launches(launches, flat_calls, beam_calls, n_layer, k3)
     else:
-        check_decode_launches(launches, flat_calls, n_layer, k3)
+        check_decode_launches(launches, flat_calls, n_layer, k3,
+                              flat_layers=whisper._decode_flat_ro.layers)
 
     busy_steps(srv, n_slots, SEED + 40, unit)
     return launches, writes
@@ -1915,7 +2223,7 @@ def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
     window[0, :len(audio)] = torch.from_numpy(audio)
     prompt = tok.sot_sequence("en", "transcribe")
     with torch.inference_mode():
-        xkv, _ = srv._prep(window, False)
+        xkv, _, _ = srv._prep(window, False)
         toks, _, lens, _ = beam.beam_search_loop(
             cfg, params, xkv, torch.tensor([prompt], device="cuda"),
             srv._suppress, beam_size=BEAM, prompt_len=len(prompt),
@@ -1929,6 +2237,306 @@ def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
         f"{len(got.tokens)} tokens, "
         f"{'equal' if got.tokens == ref else 'DIFFERENT'}")
     check(got.tokens == ref, "beam server tokens == one-shot beam tokens")
+    return out
+
+
+def per_call(fn, n: int = 16):
+    """Host wall (ms) of one fn() call, n back to back and synchronized,
+    then the device busy time (ms) of one call and the top kernels, from a
+    device-only trace of n more."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host = (time.monotonic() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, by_name = device_time(prof)
+    return host, busy / 1e3 / n, busy, by_name
+
+
+def phase_spec(seng, speculative, decoding, whisper, frontend, counters,
+               n_layer, EngineServer, batcher):
+    """4f: speculative decoding on large-v3 (bf16, int8 cross-KV; the
+    engine's random weights) with a large-v3-turbo-shaped draft (4 decoder
+    layers, random weights from a generator seeded 1, as the engine makes
+    them), and with large-v3 as its own draft. A random draft is the low
+    end of acceptance, the self-draft and spec_force_accept the high end.
+
+    1. The one-shot engine with the draft on the 20 s request, the ladder
+       pinned to T=0: x-realtime, verify passes, tokens per verify, and
+       the launch counts of exactly that run held to the two models' layers
+       (K4 = K5 = 32 x big-model flat calls + 4 x draft flat calls; the
+       draft's calls = windows + K x verify passes; K2, K3 32 a window).
+    2. One 30 s window: host wall and device busy of a draft call (S=1,
+       4 layers), a verify call (S=5, 32 layers) and a greedy step (S=1, 32
+       layers), the verify's top kernels from a device-only trace.
+    3. On that window: greedy, the speculative loop with the draft, and
+       with the self-draft (tokens per verify): each speculative run's
+       tokens equal greedy's up to the first step whose greedy top-two
+       margin (filtered, fp32) is under 4x the max |verify logits - step
+       logits| measured on greedy's own tokens (bf16 sums differ between
+       M=B*K and M=B GEMMs and S=K and S=1 attention, so a near-tie may
+       flip).
+    4. A server (1 slot, 128 decode rows, spec_policy "always", k_spec 4)
+       with the draft on one window, with and without spec_force_accept,
+       and on the int8 self-cache: tokens per iteration, x-realtime,
+       state_bytes == its allocation, launch counts held (the draft's
+       cross-KV is int8 in the server: 4 more K3 launches a prep batch),
+       and the unforced servers' tokens equal a plain server's up to the
+       same tie margin (the plain server's margins).
+    Returns {"oneshot": K4 launches, "verify": 32 x verify passes,
+    "server": K4 launches of the bf16 server, ...}."""
+    from openhush_tpu_torch.runtime import engine as eng_mod
+    cfg, params, tok = seng.cfg, seng.params, seng.tokenizer
+    dcfg, dparams = seng.draft_cfg, seng.draft_params
+    check(dcfg is not None and dcfg.n_text_layer == 4,
+          "the large-v3-turbo-shaped draft is loaded")
+    Ld = dcfg.n_text_layer
+    flat = whisper._decode_flat_ro
+    loop = speculative.speculative_greedy_loop
+    out = {}
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        flat.calls = flat.layers = 0
+
+    # 1. The one-shot engine with the draft.
+    audio = speechlike(20.0, SEED + 2)
+    eot = tok.special.eot
+    ladder, decode_spec, lens = (eng_mod.TEMPERATURES,
+                                 speculative.decode_speculative, [])
+
+    def counted(*a, **k):
+        res = decode_spec(*a, **k)
+        lens.append(emitted(res, min(MAX_NEW_TOKENS, cfg.n_text_ctx
+                                     - res.prompt_len - 1), eot))
+        return res
+
+    eng_mod.TEMPERATURES = (0.0,)
+    speculative.decode_speculative = counted
+    try:
+        reset()
+        loop.verifies = 0
+        t0 = time.monotonic()
+        r = seng.transcribe(audio, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        eng_mod.TEMPERATURES = ladder
+        speculative.decode_speculative = decode_spec
+    launches = {fn.__name__: fn.launches for fn in counters}
+    verifies = loop.verifies
+    per_verify = (sum(lens) - len(lens)) / max(verifies, 1)
+    log(f"  one-shot speculative (draft: large-v3-turbo shape, random; "
+        f"K={K_ONESHOT}): 20 s request, {r.windows} window(s), "
+        f"{len(r.segments)} segments, language {r.language}; {sum(lens)} "
+        f"tokens, {verifies} verify passes = {per_verify:.2f} tokens a "
+        f"verify; {wall:.2f} s wall = {20.0 / wall:.2f}x realtime; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(r.windows == len(lens) and isinstance(r.text, str) and verifies,
+          "one-shot speculative result")
+    for seg in r.segments:
+        check(0.0 <= seg.start <= seg.end <= 50.0
+              and math.isfinite(seg.avg_logprob), f"segment {seg}")
+    check(launches["quantize_heads_kv"] == n_layer * r.windows
+          and launches["flash_attention"] == n_layer * r.windows,
+          "K2 and K3 ran once a layer and window (the draft's one-shot "
+          "cross-KV is fp: no K3)")
+    big, draft = check_decode_launches(launches, flat.calls, n_layer,
+                                       flat_layers=flat.layers,
+                                       draft_layers=Ld)
+    check(draft == len(lens) + K_ONESHOT * verifies,
+          f"draft flat calls {draft} == a prefill a window + "
+          f"{K_ONESHOT} x {verifies} verify passes")
+    out.update(oneshot=launches["attend_decode"],
+               verify=n_layer * verifies, draft=Ld * draft)
+
+    # 2. Per-call costs on one window.
+    with torch.inference_mode():
+        window = torch.from_numpy(speechlike(30.0, SEED + 5)).cuda()[None]
+        feats = whisper.encode(cfg, params, frontend.log_mel(
+            window, cfg.n_mels).to(seng.dtype))
+        xkv, dxkv = seng._cross_kv(feats), seng._draft_cross_kv(feats)
+        prompt = torch.tensor([tok.sot_sequence("en")], device="cuda")
+        P = prompt.shape[1]
+        cache = whisper.init_kv_cache(cfg, 1, seng.dtype, 128, "cuda")
+        dcache = whisper.init_kv_cache(dcfg, 1, seng.dtype, 128, "cuda")
+        whisper.decode(cfg, params, prompt, 0, cache, xkv)
+        whisper.decode(dcfg, dparams, prompt, 0, dcache, dxkv)
+        fill = torch.tensor([P + 40], device="cuda")
+        tip = prompt[:, -1:]
+        block = prompt[:, -1:].repeat(1, K_ONESHOT)
+        calls = {
+            "draft call (S=1, 4 layers)": lambda: whisper.decode(
+                dcfg, dparams, tip, fill, dcache, dxkv),
+            f"verify call (S={K_ONESHOT}, 32 layers)": lambda: whisper.decode(
+                cfg, params, block, fill, cache, xkv),
+            "greedy step (S=1, 32 layers)": lambda: whisper.decode(
+                cfg, params, tip, fill, cache, xkv)}
+        costs = {}
+        for name, fn in calls.items():
+            host, dev_ms, busy, by_name = per_call(fn)
+            costs[name] = (host, dev_ms)
+            log(f"  {name}: {host:.2f} ms host wall, "
+                + (f"{dev_ms:.3f} ms device busy" if busy else
+                   "device time not measured (no device events)"))
+            if name.startswith("verify") and busy:
+                for kname, us in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:6]:
+                    log(f"    {us / busy:6.1%}  {us / 1e3 / 16:8.4f} ms a "
+                        f"call  {kname[:80]}")
+    out["costs"] = costs
+
+    # 3. Greedy, the draft and the self-draft on that window; the tie margin.
+    opts = decoding.DecodingOptions(language="en",
+                                    max_new_tokens=MAX_NEW_TOKENS)
+    suppress = torch.from_numpy(decoding.build_suppress_mask(
+        tok, cfg, opts)).cuda()
+    steps = []                       # (suppressed logits, top-two margin)
+    ts_filter = decoding._timestamp_filter
+
+    def recording(lg, *a, **k):
+        res = ts_filter(lg, *a, **k)
+        top2 = res[0].topk(2).values
+        steps.append((lg[0].clone(), (top2[0] - top2[1]).item()))
+        return res
+
+    decoding._timestamp_filter = recording
+    try:
+        with torch.inference_mode():
+            g = decoding.decode_greedy(cfg, params, xkv, tok, opts)
+    finally:
+        decoding._timestamp_filter = ts_filter
+    with torch.inference_mode():
+        runs = {}
+        for name, dc, dp, dk in (("draft", dcfg, dparams, dxkv),
+                                 ("self-draft", cfg, params, xkv)):
+            before = loop.verifies
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            runs[name] = speculative.decode_speculative(
+                cfg, params, dc, dp, xkv, dk, tok, opts, k_spec=K_ONESHOT)
+            torch.cuda.synchronize()
+            runs[name] = (runs[name], loop.verifies - before,
+                          time.monotonic() - t0)
+        # |verify - step| logits on greedy's own tokens: its sequence fed in
+        # K-blocks at per-row positions, as the verify pass feeds them.
+        seq = torch.from_numpy(g.tokens[0]).long().cuda()
+        n = len(steps)                   # a filter call a greedy step
+        vcache = whisper.init_kv_cache(cfg, 1, seng.dtype,
+                                       (P + n + K_ONESHOT + 63) // 64 * 64,
+                                       "cuda")
+        whisper.decode(cfg, params, seq[None, :P], 0, vcache, xkv)
+        diff = 0.0
+        keep = ~suppress
+        for start in range(P, P + n - 1, K_ONESHOT):
+            blk = seq[start:min(start + K_ONESHOT, P + n - 1)]
+            vl, _ = whisper.decode(cfg, params, blk[None],
+                                   torch.tensor([start], device="cuda"),
+                                   vcache, xkv)
+            for i in range(blk.shape[0]):
+                j = start - P + 1 + i            # the greedy step it predicts
+                diff = max(diff, (vl[0, i].float() - steps[j][0]).abs()[
+                    keep].max().item())
+    thr = 4 * diff
+    first_tie = next((j for j, (_, m) in enumerate(steps) if m < thr),
+                     len(steps))
+    log(f"  greedy on one 30 s window: {n} tokens; verify vs step logits on "
+        f"its tokens: max_abs_err {diff:.4f}; first step with a top-two "
+        f"margin under 4x that ({thr:.4f}): "
+        f"{first_tie if first_tie < len(steps) else 'none'}")
+    for name, (res, nv, secs) in runs.items():
+        row, ref = res.tokens[0, P:], g.tokens[0, P:]
+        first = next((j for j in range(len(ref)) if row[j] != ref[j]),
+                     len(ref))
+        m = emitted(res, MAX_NEW_TOKENS, eot)
+        log(f"  one-shot speculative, {name}: {m} tokens, {nv} verify passes"
+            f" = {(m - 1) / max(nv, 1):.2f} tokens a verify, {secs:.2f} s "
+            f"wall ({secs * 1e3 / max(m, 1):.1f} ms a token); tokens "
+            + ("equal greedy's" if first == len(ref) else
+               f"part from greedy's at step {first}"))
+        check(first == len(ref) or first >= first_tie,
+              f"speculative ({name}) tokens == greedy's up to the first "
+              f"near-tie")
+        out[name + "_per_verify"] = (m - 1) / max(nv, 1)
+
+    # 4. Servers on one window.
+    audio = speechlike(30.0, SEED + 66)
+    kw = dict(n_slots=1, inner_steps=8, dtype=torch.bfloat16, tokenizer=tok,
+              max_decode_len=128, temperatures=(0.0,), k_spec=K_SPEC)
+    margins, choose = [], batcher._choose_tokens
+
+    def recording_choose(lg, st, rows=None):
+        top2 = lg.topk(2, dim=-1).values
+        margins.append((top2[0, 0] - top2[0, 1]).item())
+        return choose(lg, st, rows)
+
+    batcher._choose_tokens = recording_choose
+    try:
+        [plain] = serve_windows(EngineServer(cfg, params, **kw), [audio])
+    finally:
+        batcher._choose_tokens = choose
+    first_tie = next((j for j, m in enumerate(margins) if m < thr),
+                     len(margins))
+    for int8_self, forced in ((False, False), (False, True), (True, False)):
+        srv = EngineServer(cfg, params, draft=(dcfg, dparams),
+                           spec_policy="always", int8_self_cache=int8_self,
+                           spec_force_accept=forced, **kw)
+        st = srv.state
+        allocated = sum(t.numel() * t.element_size()
+                        for t in vars(st).values() if torch.is_tensor(t))
+        sb = batcher.state_bytes(cfg, 1, dtype=torch.bfloat16, max_len=128,
+                                 int8_self_cache=int8_self, draft_cfg=dcfg)
+        check(sb == allocated and st.tokens.shape[1] == 128 + 16,
+              "spec server state_bytes == its allocation")
+        reset()
+        t0 = time.monotonic()
+        [got] = serve_windows(srv, [audio])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        what = ("int8 self-cache" if int8_self else "bf16") + (
+            ", spec_force_accept" if forced else "")
+        iters = srv.spec_iters
+        first = next((j for j in range(min(len(got), len(plain)))
+                      if got[j] != plain[j]), min(len(got), len(plain)))
+        same = got == plain
+        log(f"  spec server ({what}): {len(got)} tokens in {iters} "
+            f"iterations = {(len(got) + 1) / iters:.2f} a verify; 30 s in "
+            f"{wall:.2f} s = {30.0 / wall:.2f}x realtime; state "
+            f"{sb / 2**20:.2f} MiB (allocated {allocated / 2**20:.2f}); "
+            f"tokens vs the plain server's: "
+            + ("equal" if same else f"part at step {first}")
+            + f"; launches {launches}")
+        if not forced:
+            check(same or first >= first_tie, f"spec server ({what}) tokens "
+                  f"== plain server's up to the first near-tie")
+        # The big model's flat calls (a prefill, a verify an iteration)
+        # write the int8 self-cache; the draft's cache stays bf16.
+        big, draft = check_decode_launches(
+            launches, flat.calls, n_layer, flat_layers=flat.layers,
+            draft_layers=Ld,
+            int8_self=(1 + iters, 1, 1) if int8_self else None)
+        check(draft == 1 + K_SPEC * iters and big == 1 + iters,
+              f"a prefill of each model, then {K_SPEC} draft calls and one "
+              f"verify a spec_step iteration")
+        if not int8_self:
+            check(launches["quantize_heads_kv"] == n_layer + Ld,
+                  "K3 ran once a layer for the big and the draft cross-KV")
+        if not int8_self and not forced:
+            out.update(server=launches["attend_decode"],
+                       server_verify=n_layer * iters,
+                       server_pipelined=launches["attend_decode_pipelined"])
+        out["server_" + what] = (len(got) + 1) / iters
     return out
 
 
@@ -2050,7 +2658,8 @@ def phase_cli():
         wav = os.path.join(tmp, "request.wav")
         save_wav(wav, speechlike(10.0, SEED + 4))
         env = dict(os.environ, PYTHONPATH=ROOT, OPENHUSH_NO_FALLBACK="1")
-        for extra in ([], ["--beam-size", str(BEAM)]):
+        for extra in ([], ["--beam-size", str(BEAM)],
+                      ["--draft", "large-v3-turbo"]):
             what = " ".join(["CLI", *extra])
             r = subprocess.run(
                 [sys.executable, "-m", "openhush_tpu_torch.cli", "transcribe",
@@ -2126,7 +2735,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from openhush_tpu_torch.models.whisper import beam, decoding, weights
+    from openhush_tpu_torch.models.whisper import (beam, decoding,
+                                                   speculative, weights)
     from openhush_tpu_torch.models.whisper import model as whisper
     from openhush_tpu_torch.models.whisper.config import get_config
     from openhush_tpu_torch.ops import (_build, decode_attention,
@@ -2159,6 +2769,7 @@ def main() -> int:
     rows += phase_flash_backward(flash_attention, rows[1])
     int8_rows = phase_int8_self_cache(decode_attention, quantize)
     beam_rows = phase_beam_attention(decode_attention, quantize)
+    spec_rows = phase_spec_attention(decode_attention, quantize)
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -2180,8 +2791,10 @@ def main() -> int:
                     get_config, frontend, mel)
     phase_beam_tiny(beam, decoding, whisper, weights, get_config, frontend,
                     mel)
+    phase_spec_tiny(speculative, decoding, whisper, weights, get_config,
+                    frontend, mel, EngineServer)
     log(f"phase 3 tiny fp32 card vs CPU, server vs one-shot, training, int8 "
-        f"rungs, beam: {time.monotonic() - t:.1f} s")
+        f"rungs, beam, speculative: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     counters = [r["counter"] for r in rows]
@@ -2228,8 +2841,23 @@ def main() -> int:
     beam_rows[0].update(launches=beam_launches["server"],
                         oneshot_launches=beam_launches["oneshot"],
                         int8_self_launches=beam_launches["int8_self"])
-    del eng
     log(f"phase 4e beam search: {time.monotonic() - t:.1f} s")
+
+    # 4f: speculative decoding on the same bf16 weights, with a
+    # large-v3-turbo-shaped draft (random weights seeded 1).
+    t = time.monotonic()
+    seng = WhisperEngine("large-v3", params=eng.params,
+                         draft_model="large-v3-turbo", allow_random_init=True)
+    del eng
+    spec = phase_spec(seng, speculative, decoding, whisper, frontend,
+                      counters, n_layer, EngineServer, batcher)
+    for r, server in zip(spec_rows, ("server", "server_pipelined")):
+        r.update(launches=spec["oneshot"], verify_launches=spec["verify"],
+                 draft_launches=spec["draft"],
+                 server_launches=spec[server],
+                 server_verify_launches=spec["server_verify"])
+    del seng
+    log(f"phase 4f speculative decoding: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_cli()
@@ -2241,7 +2869,7 @@ def main() -> int:
     log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows + int8_rows + beam_rows:
+    for r in rows + int8_rows + beam_rows + spec_rows:
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
@@ -2258,9 +2886,12 @@ def main() -> int:
                     "fp32_residual_cuda_core_bound_ms",
                     "fp32_residual_plain_ms", "fp32_residual_library_ms",
                     "self_write_launches", "all_keys_bound_ms",
-                    "oneshot_launches", "int8_self_launches", *(
+                    "oneshot_launches", "int8_self_launches",
+                    "verify_launches", "draft_launches", "server_launches",
+                    "server_verify_launches", *(
                         pre + name for pre in ("oneshot_", "int8_",
-                                               "oneshot_int8_")
+                                               "oneshot_int8_", "t512_",
+                                               "draft_bf16_")
                         for name in ("ms", "plain_ms", "bound_ms",
                                      "all_keys_bound_ms", "library_ms"))):
             if key in r:

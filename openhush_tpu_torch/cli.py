@@ -3,12 +3,17 @@ the GPU.
 
 Usage: python -m openhush_tpu_torch.cli transcribe FILE [FILE ...]
 [--model large-v3] [--format text|json|srt|vtt|timestamped] [--beam-size K]
-[--random-init] [--device cpu]
+[--draft MODEL] [--random-init] [--device cpu]
 
 One file runs the one-shot engine's seek loop; several files run their seek
 loops together through the continuous-batching server
 (runtime/longform.py), as the reference CLI does. --beam-size K runs beam
-search at T=0: the one-shot engine's, or the server's beam groups. The transcript (text
+search at T=0: the one-shot engine's, or the server's beam groups. --draft
+MODEL (else OPENHUSH_DRAFT_MODEL) runs the one-shot engine's T=0 rung as
+speculative decoding with that draft; several files run the server without
+it, as the reference's CLI does. The reference's further fallback to the
+config file's `transcription.draft_model` waits for the port's copy of
+utils/config.py. The transcript (text
 block, JSON object, or subtitle body; per file, headed, for several files,
 and a JSON list with a "file" key) goes to stdout, with the reference's JSON
 keys (src/main.rs:1028-1036); progress lines go to stderr.
@@ -40,6 +45,10 @@ def _add_transcribe(sub):
                         "(smoke tests only)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--draft", default=None, metavar="MODEL",
+                   help="speculative decoding draft (e.g. large-v3-turbo "
+                        "for large-v3); token-exact, speed only; one file "
+                        "only")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
@@ -79,7 +88,7 @@ def cmd_transcribe(args) -> int:
                                allow_random_init=args.random_init or
                                os.environ.get(
                                    "OPENHUSH_ALLOW_RANDOM_INIT") == "1",
-                               device=args.device)
+                               draft_model=args.draft, device=args.device)
     except (FileNotFoundError, RuntimeError) as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -137,7 +146,8 @@ def _transcribe_batch(engine, audios, args):
     """Several files through the continuous-batching server: every file
     runs its own seek loop, one window in flight per file, and the server
     batches the in-flight windows of different files into one decode
-    step; with --beam-size, concurrent beam groups."""
+    step; with --beam-size, concurrent beam groups. The server runs
+    without the engine's draft, as the reference's does."""
     from openhush_tpu_torch.runtime import longform
 
     server = longform.make_server(engine.cfg, engine.params,

@@ -458,10 +458,14 @@ def _decode_flat_ro(cfg: WhisperConfig, params: Params, x: torch.Tensor,
     cross-KV row and fold into its query dimension. Per-row `pos` ([B]
     tensor) writes rows past max_len nowhere."""
     _decode_flat_ro.calls += 1
+    _decode_flat_ro.layers += cfg.n_text_layer
     return _flat_layers(cfg, params, x, pos, cache, cross_kv, cross_group)
 
 
-_decode_flat_ro.calls = 0      # flat decoder calls, for launch accounting
+# Flat decoder calls, and the decoder layers they ran (a draft model's calls
+# run fewer than the big model's), for launch accounting.
+_decode_flat_ro.calls = 0
+_decode_flat_ro.layers = 0
 
 
 def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,

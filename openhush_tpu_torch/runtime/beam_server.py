@@ -81,7 +81,7 @@ class BeamEngineServer(EngineServer):
                 for s in seeds]
 
     def _install(self, slot: int, info: _SlotInfo, xkv=None,
-                 row: int = 0) -> None:
+                 row: int = 0, dxkv=None) -> None:
         prompt = self.tokenizer.sot_sequence(info.language, info.task,
                                              timestamps=info.timestamps)
         info.prompt_len = len(prompt)
@@ -101,7 +101,7 @@ class BeamEngineServer(EngineServer):
 
     def _install_many(self, group) -> None:
         """A group prefills one row; the installs run one by one."""
-        for slot, info, xkv, row in group:
+        for slot, info, xkv, row, _ in group:
             self._install(slot, info, xkv=xkv, row=row)
 
     # -- observation -----------------------------------------------------------

@@ -12,17 +12,21 @@ kernel), the cross-KV (int8 on the per-head quantize kernel when the
 weights are bf16, as in production; fp with fp32 weights), language
 detection, then decoding under the temperature ladder: beam search at
 T=0 when `transcribe` is given a beam_size (models/whisper/beam.py), else
-greedy; the rungs at T > 0 sample.
+speculative decoding at T=0 when a draft model is loaded
+(models/whisper/speculative.py), else greedy; the rungs at T > 0 sample.
 
 The int8 rungs resolve as the reference's: int8 decoder weights
 (`quantize_weights`) and the W8A8 encoder (`quantize_encoder`), see
-utils/quant_flags.py. Not in this slice (NotImplementedError): speculative
-drafts.
+utils/quant_flags.py. A draft model (`draft_model`, else
+OPENHUSH_DRAFT_MODEL) turns the T=0 rung into speculative decoding: a
+shallower decoder that shares this model's encoder (large-v3-turbo for
+large-v3) proposes tokens, and the output stays the greedy loop's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 import zlib
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from openhush_tpu_torch.device import resolve_device
-from openhush_tpu_torch.models.whisper import beam, decoding
+from openhush_tpu_torch.models.whisper import beam, decoding, speculative
 from openhush_tpu_torch.models.whisper import model as whisper
 from openhush_tpu_torch.models.whisper.config import get_config
 from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
@@ -42,6 +46,8 @@ from openhush_tpu_torch.runtime import validation
 from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
 from openhush_tpu_torch.utils.quant_flags import (int8_encoder_enabled,
                                                   int8_rung_enabled)
+
+log = logging.getLogger(__name__)
 
 # Temperature fallback schedule + acceptance thresholds (whisper defaults,
 # the same heuristics whisper.cpp replicates). OPENHUSH_NO_FALLBACK=1
@@ -150,25 +156,21 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _resolve_switches(quantize_weights, quantize_encoder, draft_model
-                      ) -> tuple[bool, bool]:
-    """The int8 switches as the reference's engine resolves them
-    (openhush_tpu/runtime/engine.py:189-213) → (quantize_weights,
-    quantize_encoder). quantize_weights: the argument, else
+                      ) -> tuple[bool, bool, Optional[str]]:
+    """The int8 and draft switches as the reference's engine resolves them
+    (openhush_tpu/runtime/engine.py:189-234) → (quantize_weights,
+    quantize_encoder, draft_model). quantize_weights: the argument, else
     OPENHUSH_INT8_WEIGHTS (a hard switch both ways), else the int8 rung;
-    quantize_encoder: the argument, else int8_encoder_enabled(). A draft
-    model (the argument, else OPENHUSH_DRAFT_MODEL) raises: speculative
-    decoding is not ported yet."""
-    if draft_model or os.environ.get("OPENHUSH_DRAFT_MODEL"):
-        raise NotImplementedError(
-            "draft_model (speculative decoding: the argument or "
-            "OPENHUSH_DRAFT_MODEL) is not ported yet (ROADMAP A5)")
+    quantize_encoder: the argument, else int8_encoder_enabled();
+    draft_model: the argument, else OPENHUSH_DRAFT_MODEL, else None."""
+    draft_model = draft_model or os.environ.get("OPENHUSH_DRAFT_MODEL") or None
     if quantize_weights is None:
         env_w = os.environ.get("OPENHUSH_INT8_WEIGHTS")
         quantize_weights = (env_w == "1" if env_w is not None
                             else int8_rung_enabled())
     if quantize_encoder is None:
         quantize_encoder = int8_encoder_enabled()
-    return bool(quantize_weights), bool(quantize_encoder)
+    return bool(quantize_weights), bool(quantize_encoder), draft_model
 
 
 class WhisperEngine:
@@ -189,7 +191,7 @@ class WhisperEngine:
                  quantize_encoder: Optional[bool] = None,
                  draft_model: Optional[str] = None,
                  params=None, device=None):
-        quantize_weights, quantize_encoder = _resolve_switches(
+        quantize_weights, quantize_encoder, draft_model = _resolve_switches(
             quantize_weights, quantize_encoder, draft_model)
         self.device = resolve_device(device)
         self.cfg = get_config(model)
@@ -226,6 +228,49 @@ class WhisperEngine:
             self.params = whisper.quantize_encoder_weights(self.params)
         self.tokenizer = WhisperTokenizer.for_model(
             model, vocab_dir or os.path.dirname(path))
+        # Speculative decoding (token-exact, speed only): a shallower
+        # decoder sharing this model's encoder drafts the T=0 rung's tokens.
+        self.draft_cfg = self.draft_params = None
+        if draft_model:
+            self._init_draft(draft_model, allow_random_init)
+
+    def _init_draft(self, draft_model: str, allow_random_init: bool) -> None:
+        """Load the draft as the reference does (engine.py:236-264): an
+        incompatible one (vocab, encoder width or context) or a missing
+        checkpoint without allow_random_init logs a warning and leaves
+        speculation off; random weights come from a generator seeded 1."""
+        dcfg = get_config(draft_model)
+        if (dcfg.n_vocab != self.cfg.n_vocab
+                or dcfg.n_audio_state != self.cfg.n_audio_state
+                or dcfg.n_audio_ctx != self.cfg.n_audio_ctx):
+            log.warning(
+                "draft model %s incompatible with %s (vocab/encoder dims "
+                "differ); speculative decoding disabled", draft_model,
+                self.model_name)
+            return
+        dpath = os.path.join(default_model_dir(), f"{draft_model}.npz")
+        if os.path.exists(dpath):
+            dparams = from_numpy_params(load_npz(dpath), self.dtype,
+                                        self.device)
+        elif allow_random_init:
+            gen = torch.Generator(device=self.device).manual_seed(1)
+            dparams = init_params(dcfg, gen, self.dtype, self.device)
+        else:
+            log.warning("draft model checkpoint missing (%s); speculative "
+                        "decoding disabled", dpath)
+            return
+        self.draft_cfg, self.draft_params = dcfg, dparams
+        log.info("speculative decoding: %s drafts for %s", draft_model,
+                 self.model_name)
+
+    def _draft_cross_kv(self, feats: torch.Tensor):
+        """The draft's cross-KV from the same encoder features: fp, in the
+        engine's dtype (the reference's engine.py:260); None without a
+        draft."""
+        if self.draft_cfg is None:
+            return None
+        return whisper.compute_cross_kv(self.draft_cfg, self.draft_params,
+                                        feats)
 
     def _cross_kv(self, feats: torch.Tensor):
         # Production (bf16) path quantizes cross-KV to int8: halves the
@@ -238,12 +283,13 @@ class WhisperEngine:
 
     def _decode_window(self, cross_kv, language: str,
                        prompt_ids: list[int],
-                       opts: decoding.DecodingOptions
+                       opts: decoding.DecodingOptions, draft_xkv=None
                        ) -> tuple[decoding.DecodingResult, float, str]:
         """Run decode with whisper's temperature fallback ladder. Returns
         (result, compression_ratio, text) for batch row 0. The T=0 rung runs
-        beam search when opts.beam_size is set; rung i > 0 samples from a
-        generator seeded i."""
+        beam search when opts.beam_size is set, else speculative decoding
+        when draft_xkv (the draft's cross-KV) is given; rung i > 0 samples
+        from a generator seeded i."""
         tok = self.tokenizer
         for ti, t in enumerate(TEMPERATURES):
             o = dataclasses.replace(opts, temperature=t,
@@ -251,6 +297,10 @@ class WhisperEngine:
             if t == 0.0 and opts.beam_size:
                 result = beam.decode_beam(self.cfg, self.params, cross_kv,
                                           tok, o, prompt_ids=prompt_ids)
+            elif t == 0.0 and draft_xkv is not None:
+                result = speculative.decode_speculative(
+                    self.cfg, self.params, self.draft_cfg, self.draft_params,
+                    cross_kv, draft_xkv, tok, o, prompt_ids=prompt_ids)
             else:
                 result = decoding.decode_greedy(
                     self.cfg, self.params, cross_kv, tok, o,
@@ -335,6 +385,7 @@ class WhisperEngine:
             feats = whisper.encode(self.cfg, self.params,
                                    mel.to(self.dtype))
             cross_kv = self._cross_kv(feats)
+            draft_xkv = self._draft_cross_kv(feats)
 
             if detected_language is None:
                 langs, _ = decoding.detect_language(
@@ -348,7 +399,8 @@ class WhisperEngine:
                 prompt_ids = [sp.start_of_prev] + prev[-room:]
 
             result, cr, text = self._decode_window(
-                cross_kv, detected_language, prompt_ids, opts)
+                cross_kv, detected_language, prompt_ids, opts,
+                draft_xkv=draft_xkv)
             content = self._content_tokens(result)
 
             # Silence skip (whisper's no_speech rule).

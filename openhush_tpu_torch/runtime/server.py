@@ -1,12 +1,12 @@
 """Engine server: session-multiplexed continuous batching over one device.
 
-Port of openhush_tpu/runtime/server.py without speculative serving.
-Sessions submit 30 s (or shorter, padded) windows; a prep thread encodes
-them in batches (log-mel, encoder, int8 cross-KV, language logits); the
-scheduler turn installs prepared windows into free batch slots, advances
-every active slot by `inner_steps` tokens (runtime/batcher.step), and
-harvests finished slots into per-session queues, retrying degenerate windows
-up the temperature ladder. `peek` reads a window's tokens mid-decode.
+Port of openhush_tpu/runtime/server.py. Sessions submit 30 s (or shorter,
+padded) windows; a prep thread encodes them in batches (log-mel, encoder,
+int8 cross-KV, language logits); the scheduler turn installs prepared
+windows into free batch slots, advances every active slot by `inner_steps`
+tokens (runtime/batcher.step), and harvests finished slots into
+per-session queues, retrying degenerate windows up the temperature ladder.
+`peek` reads a window's tokens mid-decode.
 
 Both threads launch kernels on the device's current stream (PyTorch's
 default stream unless the caller sets another for both), so every window's
@@ -16,9 +16,15 @@ prepared tensors are written before any step that reads them.
 int8 rung or the int8_self_cache.ok marker, as the reference resolves it)
 keeps the slots' self-cache in int8 with per-(position, head) scales.
 
-Differences from the reference: `draft=` (speculative serving, ROADMAP
-queue A item 13) raises NotImplementedError. The memory budgeter reads the
-card's capacity from torch.cuda.mem_get_info.
+`draft=(draft_cfg, draft_params)` (a draft of the big model's width, heads
+and vocab) turns on speculative serving: the prep thread projects the
+draft's int8 cross-KV from the same encoder features, and the device loop
+runs batcher.spec_step under `spec_policy` ("auto" speculates only while a
+window decodes alone; "always"; "never"), with the same tokens as the plain
+step.
+
+Differences from the reference: the memory budgeter reads the card's
+capacity from torch.cuda.mem_get_info.
 """
 
 from __future__ import annotations
@@ -96,22 +102,26 @@ HBM_BUDGET_FRACTION = 0.85
 
 
 def _nbytes(tree) -> int:
-    """Device bytes of a parameter tree: an int8 weight {"q", "s"} counts
-    its levels at one byte and its fp32 scales."""
+    """Device bytes of a parameter tree (0 for None): an int8 weight {"q",
+    "s"} counts its levels at one byte and its fp32 scales."""
+    if tree is None:
+        return 0
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
 
 
-def hbm_fit_count(params, state_bytes_at) -> Optional[int]:
-    """Largest slot count whose state fits next to the weights under
-    HBM_BUDGET_FRACTION, or None when the capacity is unknown (the CPU).
-    state_bytes_at(n) → exact bytes of the batch state at n slots
-    (a batcher.state_bytes partial)."""
+def hbm_fit_count(params, state_bytes_at, draft_params=None
+                  ) -> Optional[int]:
+    """Largest slot count whose state fits next to the weights (and the
+    draft's) under HBM_BUDGET_FRACTION, or None when the capacity is
+    unknown (the CPU). state_bytes_at(n) → exact bytes of the batch state
+    at n slots (a batcher.state_bytes partial)."""
     limit = device_hbm_limit(_params_device(params))
     if limit is None:
         return None
-    budget = int(limit * HBM_BUDGET_FRACTION) - _nbytes(params)
+    budget = (int(limit * HBM_BUDGET_FRACTION) - _nbytes(params)
+              - _nbytes(draft_params))
     per = max(1, state_bytes_at(1))
     fits = max(0, budget // per)
     while fits > 0 and state_bytes_at(fits) > budget:
@@ -173,12 +183,15 @@ class EngineServer:
                  max_admissions_per_turn: int = 1,
                  int8_self_cache: Optional[bool] = None,
                  draft: Optional[tuple] = None,
+                 k_spec: int = 4,
+                 spec_policy: str = "auto",
+                 spec_force_accept: bool = False,
                  harvest_every: int = 1,
                  deep_factor: int = 4,
                  reserve_first_window: Optional[bool] = None):
-        if draft is not None:
-            raise NotImplementedError("draft (speculative serving) is not "
-                                      "ported yet (ROADMAP A5)")
+        if spec_policy not in ("auto", "always", "never"):
+            raise ValueError(f"spec_policy {spec_policy!r} not in "
+                             "('auto', 'always', 'never')")
         if int8_self_cache is None:
             # As the reference's server (server.py:253-267): the variable
             # when set, else the combined int8 rung or the self-cache's own
@@ -201,7 +214,36 @@ class EngineServer:
         # tokens, fewer scheduler turns. deep_factor=1 disables.
         self.deep_factor = max(1, int(deep_factor))
         self.step_dispatches = 0         # batcher.step calls (accounting)
+        self.spec_iters = 0              # spec_step iterations (accounting)
         self.tokenizer = tokenizer or WhisperTokenizer(cfg.n_langs)
+        # Speculative serving: the shared draft proposes k_spec-token blocks
+        # that the big model verifies in one pass (batcher.spec_step). The
+        # policy: speculation loses once several slots decode together (the
+        # plain step's weight reads are shared by the batch), so "auto"
+        # re-picks the mode each time the batcher is empty: speculate iff
+        # exactly one window waits. The mode changes only at occupancy 0:
+        # the two steps keep different cache fills (spec keeps the tip out
+        # of the cache), so a switch mid-decode would corrupt the slots in
+        # flight. "always" and "never" pin it.
+        self.draft_cfg = self.draft_params = None
+        self.k_spec = max(2, int(k_spec))
+        self.spec_policy = spec_policy
+        self._spec_mode = spec_policy == "always"
+        self._spec_blocked = False
+        # Measurement only (the accept-everything upper bound; its tokens
+        # are not greedy's): constructor-only, no variable reaches it.
+        self.spec_force_accept = bool(spec_force_accept)
+        if draft is not None:
+            dcfg, dparams = draft
+            if (dcfg.n_text_state == cfg.n_text_state
+                    and dcfg.n_vocab == cfg.n_vocab
+                    and dcfg.n_text_head == cfg.n_text_head
+                    and dcfg.n_audio_state == cfg.n_audio_state):
+                self.draft_cfg, self.draft_params = dcfg, dparams
+            else:
+                log.warning("draft model %s incompatible with %s; "
+                            "speculative serving disabled", dcfg.name,
+                            cfg.name)
         # audio_ctx: whisper.cpp-style encoder-context restriction (short
         # streaming windows need ~chunk_secs*50 encoder positions).
         self.audio_ctx = min(audio_ctx or cfg.n_audio_ctx, cfg.n_audio_ctx)
@@ -231,7 +273,8 @@ class EngineServer:
             b for b in (1, 2, 4, 8) if b <= max(1, n_slots))
 
         self._pending: queue.Queue[_Pending] = queue.Queue()
-        # Prepared windows awaiting a slot: (job, info, batched_xkv, row).
+        # Prepared windows awaiting a slot: (job, info, batched_xkv, row,
+        # the draft's batched_xkv or None).
         # A prep thread fills this so the step loop never stalls on
         # admission work; the scheduler turn only installs.
         self._ready: queue.Queue[tuple] = queue.Queue()
@@ -408,6 +451,20 @@ class EngineServer:
                 if not jobs:
                     break
                 self._prepare_many(jobs)
+        if self.draft_cfg is not None and self.spec_policy == "auto":
+            # Re-pick the mode only while the batcher is empty: speculate iff
+            # exactly one window waits (counting windows mid-prep, or a
+            # stagger can look like one).
+            with self._lock:
+                occupied = bool(self._slots)
+            if not occupied:
+                waiting = (self._ready.qsize() + self._ready_first.qsize()
+                           + self._unlanded)
+                if waiting == 0:
+                    # Idle: forget the concurrency evidence, so a later lone
+                    # window speculates again.
+                    self._spec_blocked = False
+                self._spec_mode = waiting == 1 and not self._spec_blocked
         worked = self._admit_pending()
         with self._lock:
             n_active = len(self._slots)
@@ -439,38 +496,56 @@ class EngineServer:
     def _init_device_state(self, *, dtype, max_len, int8_self_cache) -> None:
         self._check_hbm_budget(functools.partial(
             batcher.state_bytes, self.cfg, dtype=dtype, max_len=max_len,
-            audio_ctx=self.audio_ctx, int8_self_cache=int8_self_cache))
+            audio_ctx=self.audio_ctx, int8_self_cache=int8_self_cache,
+            draft_cfg=self.draft_cfg))
         self.state = batcher.init_state(self.cfg, self.n_slots, dtype=dtype,
                                         int8_self_cache=int8_self_cache,
                                         max_len=max_len,
                                         audio_ctx=self.audio_ctx,
+                                        draft_cfg=self.draft_cfg,
                                         device=self.device)
 
     def _check_hbm_budget(self, state_bytes_at) -> None:
-        """Refuse slot counts whose state cannot fit next to the weights,
-        computed from cfg (batcher.state_bytes) rather than found as an
-        out-of-memory error mid-run. No-op on the CPU."""
-        fits = hbm_fit_count(self.params, state_bytes_at)
+        """Refuse slot counts whose state cannot fit next to the weights
+        (the draft's included), computed from cfg (batcher.state_bytes)
+        rather than found as an out-of-memory error mid-run. No-op on the
+        CPU."""
+        fits = hbm_fit_count(self.params, state_bytes_at,
+                             draft_params=self.draft_params)
         if fits is None or self.n_slots <= fits:
             return
         limit = device_hbm_limit(self.device)
+        weights = _nbytes(self.params) + _nbytes(self.draft_params)
         raise ValueError(
             f"n_slots={self.n_slots} needs "
             f"{state_bytes_at(self.n_slots) / 2**30:.2f} GiB of slot "
-            f"state next to {_nbytes(self.params) / 2**30:.2f} GiB of "
+            f"state next to {weights / 2**30:.2f} GiB of "
             f"weights (card: {limit / 2**30:.2f} GiB, "
             f"{HBM_BUDGET_FRACTION:.0%} budgeted); "
             f"largest slot count that fits: {fits}")
 
     def _step_state(self, deep: bool = False) -> None:
         """One step dispatch; `deep` multiplies the inner steps by
-        deep_factor (the same per-token math)."""
+        deep_factor (the same per-token math). In the speculative mode,
+        max(1, inner // k_spec) spec_step iterations. Both pass room_cap,
+        so a draft's SPEC_MARGIN rows never extend a decode."""
         inner = self.inner_steps * (self.deep_factor if deep else 1)
         self.step_dispatches += 1
-        batcher.step(self.cfg, self.params, self.state, self._suppress,
-                     inner_steps=inner, blank_token=self._blank_token,
-                     rep_threshold=self.rep_threshold,
-                     room_cap=self.room_cap)
+        if self.draft_cfg is not None and self._spec_mode:
+            n_iters = max(1, inner // self.k_spec)
+            self.spec_iters += n_iters
+            batcher.spec_step(self.cfg, self.params, self.draft_cfg,
+                              self.draft_params, self.state, self._suppress,
+                              k_spec=self.k_spec, n_iters=n_iters,
+                              room_cap=self.room_cap,
+                              blank_token=self._blank_token,
+                              rep_threshold=self.rep_threshold,
+                              force_accept=self.spec_force_accept)
+        else:
+            batcher.step(self.cfg, self.params, self.state, self._suppress,
+                         inner_steps=inner, blank_token=self._blank_token,
+                         rep_threshold=self.rep_threshold,
+                         room_cap=self.room_cap)
 
     def _free_slots(self) -> list[int]:
         with self._lock:
@@ -481,21 +556,36 @@ class EngineServer:
         `max_admissions_per_turn` non-first windows per turn while other
         sessions decode (an idle batcher fills every free slot at once).
         A session's FIRST window goes ahead of resubmissions, outside the
-        per-turn budget, and may take the reserved slot (_regular_cap)."""
+        per-turn budget, and may take the reserved slot (_regular_cap).
+
+        Under spec_policy "auto" in the speculative mode a batch holds one
+        window: a window that becomes ready while one decodes waits, and is
+        recorded as concurrency, so the next re-pick (at occupancy 0)
+        chooses the plain step. Without that, two sessions whose windows
+        alternate would each find exactly one window waiting at every
+        drain and serialize on single-stream speculation."""
         with self._lock:
             n_active = len(self._slots)
         budget = self.max_admissions_per_turn if n_active else self.n_slots
+        spec_limited = self.spec_policy == "auto" and self._spec_mode
+        if spec_limited:
+            if n_active and (self._ready.qsize() + self._ready_first.qsize()
+                             + self._unlanded) > 0:
+                self._spec_blocked = True
+            budget = min(budget, max(0, 1 - n_active))
         admitted = False
-        picked = []            # (slot, info, xkv, row)
+        picked = []            # (slot, info, xkv, row, dxkv)
         free = self._free_slots()
         f = 0
-        while f < len(free):
+        while f < len(free) and not (spec_limited and budget <= 0):
             try:
-                job, info, xkv, row = self._ready_first.get_nowait()
+                job, info, xkv, row, dxkv = self._ready_first.get_nowait()
             except queue.Empty:
                 break
-            picked.append((free[f], info, xkv, row))
+            picked.append((free[f], info, xkv, row, dxkv))
             f += 1
+            if spec_limited:
+                budget -= 1
             with self._lock:
                 self._served.add(job.session_id)
                 self._first_pending.discard(job.session_id)
@@ -505,10 +595,10 @@ class EngineServer:
         while (f < len(free) and budget > 0
                and n_active + len(picked) < cap):
             try:
-                job, info, xkv, row = self._ready.get_nowait()
+                job, info, xkv, row, dxkv = self._ready.get_nowait()
             except queue.Empty:
                 break
-            picked.append((free[f], info, xkv, row))
+            picked.append((free[f], info, xkv, row, dxkv))
             f += 1
             budget -= 1
             with self._lock:
@@ -531,14 +621,16 @@ class EngineServer:
             i += len(group)
             admitted = True
             if len(group) == 1:
-                slot, info, xkv, row = group[0]
-                self._install(slot, info, xkv=xkv, row=row)
+                slot, info, xkv, row, dxkv = group[0]
+                self._install(slot, info, xkv=xkv, row=row, dxkv=dxkv)
             else:
                 self._install_many(group)
         return admitted
 
     def _prep(self, windows: torch.Tensor, detect: bool):
-        """Batched mel → encode → int8 cross-KV (→ language probs)."""
+        """Batched mel → encode → int8 cross-KV (→ language probs), and with
+        a draft its int8 cross-KV from the same features (the draft shares
+        the big model's encoder) → (xkv, probs or None, dxkv or None)."""
         cfg = self.cfg
         mel = frontend.log_mel(windows, n_mels=cfg.n_mels,
                                n_frames=self.audio_ctx * 2)
@@ -546,12 +638,16 @@ class EngineServer:
         xkv = whisper.compute_cross_kv_quant(cfg, self.params, feats)
         probs = (decoding.detect_language_logits(cfg, self.params, xkv)
                  if detect else None)
-        return xkv, probs
+        dxkv = (whisper.compute_cross_kv_quant(self.draft_cfg,
+                                               self.draft_params, feats)
+                if self.draft_cfg is not None else None)
+        return xkv, probs, dxkv
 
     def _prepare_many(self, jobs: list[_Pending]) -> None:
         """All per-window work that needs no slot, for a batch of windows:
         preprocess, mel, encode, int8 cross-KV, language logits. Entries
-        land on _ready / _ready_first as (job, info, batched_xkv, row)."""
+        land on _ready / _ready_first as (job, info, batched_xkv, row,
+        the draft's batched_xkv or None)."""
         try:
             self._prepare_many_inner(jobs)
         except Exception:
@@ -581,7 +677,7 @@ class EngineServer:
             n = min(len(job.audio), n_samples)
             windows[j, :n] = job.audio[:n]
         need_detect = any(j.language in ("auto", "", None) for j in jobs)
-        xkv, lang_probs = self._prep(
+        xkv, lang_probs, dxkv = self._prep(
             torch.from_numpy(windows).to(self.device), need_detect)
         if need_detect:
             idx = lang_probs.argmax(dim=-1).tolist()
@@ -595,25 +691,27 @@ class EngineServer:
                              language=language, task=job.task,
                              timestamps=job.timestamps, temp_idx=0)
             dest = self._ready_first if job.first else self._ready
-            dest.put((job, info, xkv, j))
+            dest.put((job, info, xkv, j, dxkv))
 
     def _install(self, slot: int, info: _SlotInfo, xkv=None,
-                 row: int = 0) -> None:
+                 row: int = 0, dxkv=None) -> None:
         """Prefill `slot` at the ladder temperature info.temp_idx: from a
-        prepared batched cross-KV (first install) or from the slot's own
-        copy (retry, batcher.readmit)."""
+        prepared batched cross-KV (first install; the draft's from `dxkv`)
+        or from the slot's own copies (retry, batcher.readmit)."""
         prompt = self.tokenizer.sot_sequence(info.language, info.task,
                                              timestamps=info.timestamps)
         info.prompt_len = len(prompt)
         temp = float(self.temperatures[info.temp_idx])
+        draft = dict(draft_cfg=self.draft_cfg, draft_params=self.draft_params)
         if xkv is not None:
             batcher.admit(self.cfg, self.params, self.state, slot, xkv,
                           prompt, info.timestamps, prompt_len=len(prompt),
-                          temperature=temp, seed=slot_seed(info), row=row)
+                          temperature=temp, seed=slot_seed(info), row=row,
+                          draft_xkv=dxkv, **draft)
         else:
             batcher.readmit(self.cfg, self.params, self.state, slot, prompt,
                             info.timestamps, prompt_len=len(prompt),
-                            temperature=temp, seed=slot_seed(info))
+                            temperature=temp, seed=slot_seed(info), **draft)
         with self._lock:
             self._slots[slot] = info
 
@@ -621,7 +719,7 @@ class EngineServer:
         """Install k windows of one prep batch."""
         tok = self.tokenizer
         slots, prompts, use_ts, temps, seeds, rows = [], [], [], [], [], []
-        for slot, info, _, row in group:
+        for slot, info, _, row, _ in group:
             prompt = tok.sot_sequence(info.language, info.task,
                                       timestamps=info.timestamps)
             info.prompt_len = len(prompt)
@@ -634,7 +732,9 @@ class EngineServer:
         batcher.admit_many(self.cfg, self.params, self.state, slots,
                            group[0][2], prompts, use_ts,
                            prompt_len=len(prompts[0]), temperatures=temps,
-                           seeds=seeds, rows=rows)
+                           seeds=seeds, rows=rows, draft_cfg=self.draft_cfg,
+                           draft_params=self.draft_params,
+                           draft_xkv=group[0][4])
         with self._lock:
             for slot, info, *_ in group:
                 self._slots[slot] = info

@@ -222,13 +222,21 @@ def test_state_bytes_and_unported_options(weights_pair):
     assert batcher.state_bytes(CFG, 3, dtype=torch.float32, max_len=64,
                                audio_ctx=200,
                                int8_self_cache=True) == allocated8 < allocated
-    with pytest.raises(NotImplementedError):
-        batcher.init_state(CFG, 2, draft_cfg=CFG, device="cpu")
-    with pytest.raises(NotImplementedError):
-        batcher.spec_step(CFG, params, st, None, room_cap=63)
-    with pytest.raises(NotImplementedError):
-        EngineServer(CFG, params, n_slots=2, dtype=torch.float32,
-                     draft=(CFG, params))
+    # Speculative serving is ported (tests/test_torch_spec_batcher.py): a
+    # draft's state builds with SPEC_MARGIN more rows, spec_step runs (here
+    # on no active slot: nothing moves), and EngineServer takes draft=.
+    sd = batcher.init_state(CFG, 2, dtype=torch.float32, max_len=64,
+                            draft_cfg=CFG, device="cpu")
+    assert sd.tokens.shape == (2, 64 + batcher.SPEC_MARGIN)
+    assert sd.d_cache_k.shape == (L, 2, 64 + batcher.SPEC_MARGIN,
+                                  CFG.n_text_state)
+    sup = torch.from_numpy(decoding.build_suppress_mask(
+        WhisperTokenizer(CFG.n_langs), CFG, decoding.DecodingOptions()))
+    batcher.spec_step(CFG, params, CFG, params, sd, sup, room_cap=63)
+    assert int(sd.pos.sum()) == 0 and int(sd.length.sum()) == 0
+    srv = EngineServer(CFG, params, n_slots=2, dtype=torch.float32,
+                       max_decode_len=64, draft=(CFG, params))
+    assert srv.draft_cfg is CFG and srv.state.d_cache_k.shape[0] == L
     # Beam serving is ported (tests/test_torch_beam_server.py).
     from openhush_tpu_torch.runtime.beam_server import BeamEngineServer
     srv = longform.make_server(CFG, params, WhisperTokenizer(CFG.n_langs),

@@ -430,7 +430,7 @@ def test_server_matches_oneshot_and_deep_stepping(weights_pair):
     n = srv.audio_ctx * 2 * mel_ops.HOP_LENGTH
     window = np.zeros((1, n), np.float32)
     window[0, :len(audio)] = audio
-    xkv, _ = srv._prep(torch.from_numpy(window), False)
+    xkv, _, _ = srv._prep(torch.from_numpy(window), False)
     prompt = TOK.sot_sequence("en", "transcribe")
     ref, score = _oneshot(params, xkv, K, True, srv.room_cap - len(prompt))
     assert a.tokens == ref

@@ -9,8 +9,9 @@ first.
   weights, the port's quantizes the same leaves (scales rtol 1e-6, int8
   levels within one on at most 1e-3 of the elements: the reference's /127
   may compile to a reciprocal multiply); where the reference loads a draft
-  model, the port's raises NotImplementedError naming draft_model (not
-  ported yet);
+  model, the port's loads the same one (random weights under
+  allow_random_init, as the reference's), and where it loads none, neither
+  does the port;
 - where the reference's EngineServer allocates an int8 self-cache, the
   port's has int8 values and [L, B, T, H] scales, else its fp cache with
   [L, B, 1, 1] placeholders;
@@ -104,13 +105,14 @@ def test_engine_refuses_what_the_reference_turns_on(setting, weights_pair):
     jparams, params = weights_pair
     ref = jax_engine.WhisperEngine("test", params=jparams,
                                    allow_random_init=True)
-    build = lambda: engine.WhisperEngine(  # noqa: E731
-        "test", params=params, allow_random_init=True, device="cpu")
-    if ref.draft_cfg is not None:
-        with pytest.raises(NotImplementedError, match="draft_model"):
-            build()
-        return
-    eng = build()
+    eng = engine.WhisperEngine("test", params=params, allow_random_init=True,
+                               device="cpu")
+    if ref.draft_cfg is None:
+        assert eng.draft_cfg is None and eng.draft_params is None
+    else:
+        assert eng.draft_cfg.name == ref.draft_cfg.name
+        assert (eng.draft_params["decoder"]["layers"]["q_w"].shape
+                == ref.draft_params["decoder"]["layers"]["q_w"].shape)
     quantized = False
     for part in ("decoder", "encoder"):
         ref_q = _int8_leaves(ref.params[part]["layers"])
