@@ -44,6 +44,11 @@ Phases, each printing its own lines and its seconds:
      512 rows; K5 with S=4 (B=8) and S=5 (B=1) queries a row on the int8
      cross-KV and the one-shot draft's S=1 step on a bf16 one; each against
      the plain version and itself, timed cold beside its bound and SDPA;
+     the audio front's three recurrences (csrc/dsp.cu): the compressor's
+     envelope and the limiter's gain on one 30 s window and on a 5 s
+     chunk, the Wiener denoiser's noise floor on [3000, 22], each the plain
+     version's bits and its own over two launches, timed beside two bounds
+     (bytes at 3.35 TB/s; its dependent chain at 1.98 GHz);
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -69,6 +74,16 @@ Phases, each printing its own lines and its seconds:
      longform.transcribe_files on 8 requests of 5-45 s, with every
      kernel's launch count read over exactly that run, then a few steps at
      8 busy slots under a device-only trace;
+  4c-audio. the daemon's audio front on the same weights: build_preprocess
+     (the default AudioConfig, and every stage on) over two consecutive 30 s
+     windows, card against CPU (plain versions); make_server with the
+     preprocess (every stage on) on 4 requests of 5-30 s, the DSP kernels
+     counted once a window, no "preprocess failed" warning, tokens equal to
+     a plain server's fed the preprocessed audio; the VAD engines (energy,
+     gru, Silero) into VadState and the wake-word detector on 45 s of
+     speech-like audio with silences, card against CPU; host wall and
+     device time per VAD chunk, wake-word chunk, 30 s preprocess and
+     rnn_gains on 500 frames;
   4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
      quantize_encoder) through phases 4 and 4b's runs, the encoder's
      device time W8A8 against bf16 at B=1 and B=8 (and torch._int_mm on
@@ -105,7 +120,7 @@ then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row, from 4f's one-shot speculative engine for the two verify
-rows) and, last,
+rows, from 4c-audio's preprocess server for the three DSP rows) and, last,
 the `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
@@ -428,6 +443,126 @@ def phase_kernels(frontend, flash_attention, quantize, mel):
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
             f"library {r['library_ms']}")
+    return rows
+
+
+# The DSP kernels' dependent chains: operations a step that wait on the
+# step before, at ~4 cycles each: multiply, add, select for the envelope
+# (both branches computed, the compare beside them) and the limiter; compare,
+# select, multiply, add for the noise floor.
+CHAIN_OPS = {"envelope": 3, "limiter_gain": 3, "noise_floor": 4}
+CYCLES_PER_OP = 4
+SM_HZ = 1.98e9                 # the H100's top SM clock
+
+
+def time_once_ms(fn):
+    """fn() once, timed by CUDA events (for plain versions that take
+    seconds: a loop of launches the device waits on); returns (result,
+    ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def chain_ms(name: str, steps: int) -> float:
+    return steps * CHAIN_OPS[name] * CYCLES_PER_OP / SM_HZ * 1e3
+
+
+def dsp_inputs(dsp, denoise, secs: float, seed: int):
+    """The three recurrences' inputs as the path gives them, from one window
+    of speech-like audio at 4x its level (so the limiter engages): the
+    compressor's |x|, the limiter's target gains at -1 dB, the Wiener
+    denoiser's log band energies [n_frames, 22] and its first floor."""
+    dev = torch.device("cuda")
+    x = 4.0 * torch.from_numpy(speechlike(secs, seed)).to(dev)
+    ceiling = dsp.fp32_scalar(10.0 ** (-1.0 / 20.0), x)
+    tg = torch.where(x.abs() > ceiling,
+                     ceiling / torch.clamp(x.abs(), min=1e-30),
+                     dsp.fp32_scalar(1.0, x))
+    n_frames = x.numel() // denoise.HOP
+    pad = denoise.N_FFT // 2
+    padded = torch.nn.functional.pad(x[None, None], (pad, pad),
+                                     mode="reflect")[0, 0]
+    re, im = denoise._stft(padded, n_frames)
+    band = (re * re + im * im) @ denoise._bases(dev)["fb"]
+    log_e = torch.log(band + 1e-10)
+    return x.abs(), tg, log_e, log_e[0].clone()
+
+
+def phase_dsp_kernels(dsp, denoise):
+    """The audio front's three recurrences (csrc/dsp.cu) against their plain
+    versions on the card: the envelope and the limiter's gain on one 30 s
+    window (480,000 samples) and on a 5 s daemon chunk, the noise floor on
+    [3000, 22]. Each must give its plain version's bits (both round every
+    product and sum on its own, in the reference's order) and its own bits
+    over two launches. Timed by CUDA events beside two bounds: the bytes
+    at 3.35 TB/s, and the dependent chain at 1.98 GHz."""
+    att, rel = dsp.smoothing_coeff(5.0), dsp.smoothing_coeff(50.0)
+    rc = dsp.smoothing_coeff(50.0)
+    a30, tg30, le30, f30 = dsp_inputs(dsp, denoise, 30.0, SEED + 50)
+    a5, tg5, le5, f5 = dsp_inputs(dsp, denoise, 5.0, SEED + 51)
+    cases = {
+        "envelope": (dsp.follow_envelope, dsp.follow_envelope_plain,
+                     lambda a: (a, att, rel), a30, a5,
+                     "openhush_tpu/ops/dsp.py:39 _follow_envelope (lax.scan)"),
+        "limiter_gain": (dsp.limiter_gain, dsp.limiter_gain_plain,
+                         lambda t: (t, rc), tg30, tg5,
+                         "openhush_tpu/ops/dsp.py:69 limit (its lax.scan "
+                         "at :81)"),
+    }
+    rows = []
+    for name, (fn, plain, args, x30, x5, replaces) in cases.items():
+        row = dict(name=name, source="openhush_tpu_torch/csrc/dsp.cu",
+                   replaces=replaces, counter=fn, library_ms=None)
+        for label, x in (("", x30), ("chunk5s_", x5)):
+            ours = fn(*args(x))
+            again = fn(*args(x))
+            ref, plain_ms = time_once_ms(lambda: plain(*args(x)))
+            err = (ours - ref).abs().max().item()
+            same = bool(torch.equal(ours, again))
+            n = x.numel()
+            b, by = bound_ms(8 * n, 5 * n, "fp32")
+            chain = chain_ms(name, n)
+            ms = time_ms(lambda: fn(*args(x)), iters=10, warmup=1)
+            log(f"{name} ({n} samples): max_abs_err vs plain {err:.3e} "
+                f"(tolerance 0: the same operations, each rounded), the same "
+                f"bits over two launches: {same}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms; bounds: bytes {b * 1e3:.2f} us, the "
+                f"dependent chain {chain:.4f} ms (its bound)")
+            check(err == 0 and same and bool(torch.isfinite(ours).all()),
+                  f"{name} kernel vs plain on {n} samples")
+            row.update({label + "max_abs_err": err, label + "ms": ms,
+                        label + "plain_ms": plain_ms, label + "bound_ms": b,
+                        label + "bound_by": by, label + "chain_bound_ms": chain})
+        rows.append(row)
+
+    # The noise floor on a 30 s window's [3000, 22] log band energies.
+    ours = denoise.noise_floor(le30, f30)
+    again = denoise.noise_floor(le30, f30)
+    ref, plain_ms = time_once_ms(lambda: denoise.noise_floor_plain(le30, f30))
+    err = (ours - ref).abs().max().item()
+    same = bool(torch.equal(ours, again))
+    n = le30.numel()
+    b, by = bound_ms(4 * (2 * n + f30.numel()), 5 * n, "fp32")
+    chain = chain_ms("noise_floor", le30.shape[0])
+    ms = time_ms(lambda: denoise.noise_floor(le30, f30))
+    log(f"noise_floor ({list(le30.shape)}): max_abs_err vs plain {err:.3e} "
+        f"(tolerance 0), the same bits over two launches: {same}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.1f} ms; bounds: bytes "
+        f"{b * 1e3:.3f} us, the dependent chain {chain * 1e3:.2f} us (its "
+        f"bound)")
+    check(err == 0 and same, "noise_floor kernel vs plain")
+    rows.append(dict(name="noise_floor", source="openhush_tpu_torch/csrc/dsp.cu",
+                     replaces="openhush_tpu/ops/denoise.py:144 wiener_gains "
+                     "(its lax.scan at :159)",
+                     counter=denoise.noise_floor, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     chain_bound_ms=chain, library_ms=None))
     return rows
 
 
@@ -2106,6 +2241,263 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     return launches, writes
 
 
+# The reference AudioConfig's defaults (openhush_tpu/utils/config.py), which
+# build_preprocess reads by attribute: normalization and the limiter on.
+AUDIO_DEFAULTS = dict(
+    normalization_enabled=True, normalization_target_db=-20.0,
+    compression_enabled=False, compression_threshold_db=-20.0,
+    compression_ratio=4.0, compression_attack_ms=5.0,
+    compression_release_ms=50.0, compression_makeup_gain_db=0.0,
+    limiter_enabled=True, limiter_ceiling_db=-1.0, limiter_release_ms=50.0,
+    noise_reduction_enabled=False, noise_reduction_strength=1.0)
+AUDIO_ALL_ON = dict(AUDIO_DEFAULTS, compression_enabled=True,
+                    noise_reduction_enabled=True)
+AUDIO_FRONT_SECS = (5.0, 12.0, 20.0, 30.0)   # the server run's requests
+# card vs CPU: fp32 matmuls (cuBLAS against the CPU's) and the last bit of
+# exp, log10 and pow; the recurrences are the same operations.
+PRE_TOL = 1e-4
+GATE_TOL = 1e-5
+
+
+def gated_speech(secs: float = 45.0, seed: int = SEED + 70) -> np.ndarray:
+    """Speech-like stretches between near silences (1e-3 noise)."""
+    rng = np.random.default_rng(seed)
+    parts, on, total = [], False, 0.0
+    for dur in (3.0, 6.0, 4.0, 10.0, 5.0, 8.0, 9.0):
+        dur = min(dur, secs - total)
+        parts.append(speechlike(dur, seed + len(parts)) if on else
+                     (1e-3 * rng.standard_normal(int(16000 * dur))
+                      ).astype(np.float32))
+        on, total = not on, total + dur
+    return np.concatenate(parts)
+
+
+def host_and_device(fn, n: int):
+    """Host wall per call (the calls end in a host sync or get one) and
+    device busy per call from a device-only trace of n more."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, _ = device_time(prof)
+    return wall * 1e3, (busy / 1e3 / n if busy else None)
+
+
+def threshold_with_margin(probs):
+    """A threshold in the widest gap between the middle 80% of `probs`
+    (the CPU engine's), and half that gap: segments on the card equal the
+    CPU's if every card probability is within that margin of the CPU's."""
+    p = np.sort(np.asarray(probs))
+    lo, hi = np.quantile(p, 0.1), np.quantile(p, 0.9)
+    mid = p[(p >= lo) & (p <= hi)]
+    gaps = np.diff(mid)
+    i = int(np.argmax(gaps))
+    return float((mid[i] + mid[i + 1]) / 2), float(gaps[i] / 2)
+
+
+def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
+                      wakeword, counters):
+    """The daemon's audio front on the card: build_preprocess (default
+    config and every stage on) over two consecutive 30 s windows against
+    the same calls on the CPU (plain versions); a server with the
+    preprocess (every stage on) on 4 requests of 5-30 s, its DSP launches
+    counted, no "preprocess failed" warning, its tokens equal to a plain
+    server's fed the preprocessed audio; the VAD engines (energy, gru,
+    Silero) into VadState and the wake-word detector on 45 s of speech-like
+    audio with silences, card against CPU; host wall and device time per
+    VAD chunk, wake-word chunk, 30 s preprocess, and rnn_gains on 500
+    frames. Returns the DSP kernels' launches in the server run."""
+    import logging
+    import types
+    from openhush_tpu_torch.runtime import server as server_mod
+    dev = torch.device("cuda")
+    cfgs = {"default": types.SimpleNamespace(**AUDIO_DEFAULTS),
+            "all stages": types.SimpleNamespace(**AUDIO_ALL_ON)}
+    windows = [speechlike(30.0, SEED + 60), speechlike(30.0, SEED + 61)]
+    for label, cfg in cfgs.items():
+        card = daemon.build_preprocess(cfg, device=dev)
+        cpu = daemon.build_preprocess(cfg, device="cpu")
+        for i, w in enumerate(windows):
+            y = card(w)
+            t0 = time.perf_counter()
+            y_cpu = cpu(w)
+            cpu_s = time.perf_counter() - t0
+            err = float(np.abs(y - y_cpu).max())
+            log(f"  preprocess ({label}), 30 s window {i + 1} of 2 (state "
+                f"carried): card vs CPU max_abs_err {err:.3e} (tolerance "
+                f"{PRE_TOL}); peak {np.abs(y).max():.4f}; the CPU's plain "
+                f"versions took {cpu_s:.1f} s of host wall")
+            check(err <= PRE_TOL and y.shape == w.shape
+                  and bool(np.isfinite(y).all()),
+                  f"preprocess ({label}) card vs CPU, window {i + 1}")
+
+    # The server with the preprocess (every stage on) on the engine's
+    # weights; each window's preprocessed audio is kept for the plain
+    # server.
+    requests = [speechlike(s, SEED + 62 + i)
+                for i, s in enumerate(AUDIO_FRONT_SECS)]
+    pre = daemon.build_preprocess(cfgs["all stages"], device=dev)
+    seen = []
+
+    def recorded(audio):
+        out = pre(audio)
+        seen.append(out)
+        return out
+
+    class Capture(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    def make(preprocess):
+        return longform.make_server(
+            eng.cfg, eng.params, eng.tokenizer, n_files=len(requests),
+            n_slots=len(requests), max_new_tokens=MAX_NEW_TOKENS,
+            dtype=torch.bfloat16, temperatures=(0.0,), preprocess=preprocess)
+
+    dsp_fns = (dsp.follow_envelope, dsp.limiter_gain, denoise.noise_floor)
+    capture = Capture()
+    server_log = logging.getLogger(server_mod.__name__)
+    server_log.addHandler(capture)
+    try:
+        srv = make(recorded)
+        torch.cuda.synchronize()
+        for fn in counters + list(dsp_fns):
+            fn.launches = 0
+        t0 = time.monotonic()
+        tokens = serve_windows(srv, requests)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {fn.__name__: fn.launches for fn in counters + list(dsp_fns)}
+    finally:
+        server_log.removeHandler(capture)
+    del srv
+    n = len(requests)
+    log(f"  server with the preprocess (every stage on): {n} windows of "
+        f"{AUDIO_FRONT_SECS} s in {wall:.2f} s wall; launches {launches}; "
+        f"warnings logged: {capture.messages}")
+    check(len(seen) == n, "the preprocess ran once a window")
+    check(all(launches[fn.__name__] == n for fn in dsp_fns),
+          "each DSP kernel ran once a window (denoise's floor, the "
+          "compressor's envelope, the limiter's gain)")
+    check(not any("preprocess failed" in m for m in capture.messages),
+          "no 'preprocess failed' warning: the server did not fall back to "
+          "the raw audio")
+    check(launches["log_mel_energies"] >= 1 and launches["flash_attention"] >= 32
+          and launches["quantize_heads_kv"] >= 32
+          and launches["attend_decode"] > 0
+          and launches["attend_decode_pipelined"] > 0,
+          "K1-K5 ran in the server run")
+    plain = serve_windows(make(None), seen)
+    log(f"  tokens: {[len(t) for t in tokens]} per window; a plain server "
+        f"fed the preprocessed audio: "
+        f"{'equal' if plain == tokens else 'DIFFERENT'}")
+    check(plain == tokens, "the preprocess server's tokens == a plain "
+          "server's on the preprocessed audio")
+
+    # The gates on 45 s of speech-like audio with silences: each engine on
+    # the card and on the CPU, with the same weights.
+    audio = gated_speech()
+    vad_chunks = [audio[i:i + vad.CHUNK_SIZE]
+                  for i in range(0, len(audio), vad.CHUNK_SIZE)]
+    gen = torch.Generator().manual_seed(SEED)
+    gru_cpu = vad.gru_vad_init_params(gen, device="cpu")
+    sil_cpu = silero.init_params(torch.Generator().manual_seed(SEED + 1),
+                                 device="cpu")
+
+    def on(params):
+        return {k: v.to(dev) for k, v in params.items()}
+
+    engines = {
+        "energy": (lambda d: vad.VadEngine(kind="energy", device=d)),
+        "gru": (lambda d: vad.VadEngine(
+            kind="gru", device=d, params=gru_cpu if d == "cpu" else on(gru_cpu))),
+        "silero": (lambda d: silero.SileroVad(
+            sil_cpu if d == "cpu" else on(sil_cpu), device=d)),
+    }
+    timings = {}
+    for name, make_engine in engines.items():
+        probs = {}
+        for d in (dev, "cpu"):
+            engine = make_engine(d)
+            probs[d] = [engine.process(c).probability for c in vad_chunks]
+        err = float(np.abs(np.subtract(probs[dev], probs["cpu"])).max())
+        thr, margin = ((0.5, float(np.abs(np.asarray(probs["cpu"]) - 0.5).min()))
+                       if name == "energy"
+                       else threshold_with_margin(probs["cpu"]))
+        segs = {}
+        for d in (dev, "cpu"):
+            st = vad.VadState(vad.VadStateConfig(threshold=thr))
+            segs[d] = [s for s in (st.update(vad.VadResult(p, p >= thr),
+                                             vad.CHUNK_SIZE)
+                                   for p in probs[d]) if s is not None]
+        same = ([(s.start, s.end) for s in segs[dev]]
+                == [(s.start, s.end) for s in segs["cpu"]])
+        log(f"  VAD {name}: {len(vad_chunks)} chunks, probabilities card vs "
+            f"CPU max_abs_err {err:.3e} (tolerance {GATE_TOL}); threshold "
+            f"{thr:.6f}, the CPU's probabilities at least {margin:.3e} from "
+            f"it; segments {len(segs[dev])} card, {len(segs['cpu'])} CPU, "
+            f"{'equal' if same else 'DIFFERENT'}")
+        check(err <= GATE_TOL, f"VAD {name} probabilities card vs CPU")
+        check(margin > err, f"VAD {name}: the threshold's margin exceeds the "
+              "card-vs-CPU error")
+        check(same, f"VAD {name} segments card vs CPU")
+        if name == "energy":
+            check(len(segs["cpu"]) >= 2, "the energy gate found the speech")
+        engine = make_engine(dev)
+        timings[f"VAD {name} chunk (32 ms)"] = host_and_device(
+            lambda: engine.process(vad_chunks[len(vad_chunks) // 2]), 50)
+
+    ww_gen = torch.Generator().manual_seed(SEED + 2)
+    emb = wakeword.init_embedding_params(ww_gen, device="cpu")
+    cls = wakeword.init_classifier_params(ww_gen, device="cpu")
+    dets = {dev: wakeword.WakeWordDetector(emb_params=on(emb),
+                                           cls_params=on(cls), device=dev),
+            "cpu": wakeword.WakeWordDetector(emb_params=emb, cls_params=cls,
+                                             device="cpu")}
+    step = wakeword.CHUNK_SAMPLES
+    scores = {d: [det.process(audio[i:i + step])
+                  for i in range(0, len(audio), step)]
+              for d, det in dets.items()}
+    warm = [(a, b) for a, b in zip(scores[dev], scores["cpu"])
+            if a is not None or b is not None]
+    check(all(a is not None and b is not None for a, b in warm),
+          "wake word: card and CPU warm at the same chunk")
+    err = max(abs(a - b) for a, b in warm)
+    log(f"  wake word: {len(scores[dev])} chunks, {len(warm)} scores, card "
+        f"vs CPU max_abs_err {err:.3e} (tolerance {GATE_TOL})")
+    check(err <= GATE_TOL and len(warm) > 0, "wake-word scores card vs CPU")
+    det = dets[dev]
+    timings["wake-word chunk (80 ms)"] = host_and_device(
+        lambda: det.process(audio[:step]), 50)
+
+    for label, cfg in cfgs.items():
+        card = daemon.build_preprocess(cfg, device=dev)
+        timings[f"preprocess, 30 s window ({label})"] = host_and_device(
+            lambda: card(windows[0]), 5)
+    rnn = denoise.init_rnn_params(torch.Generator(device=dev).manual_seed(SEED),
+                                  device=dev)
+    band = torch.rand(500, denoise.N_BANDS, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    st = denoise.init_state(dev)
+    timings["rnn_gains, 500 frames (eager)"] = host_and_device(
+        lambda: denoise.rnn_gains(rnn, band, st)[0].sum().item(), 2)
+    for what, (wall, busy) in timings.items():
+        log(f"  {what}: host wall {wall:.3f} ms, device busy "
+            + (f"{busy:.4f} ms" if busy is not None else "not measured "
+               "(the profiler saw no device events)"))
+    return {fn.__name__: launches[fn.__name__] for fn in dsp_fns}
 
 
 def check_beam_launches(launches, flat_calls, beam_calls, n_layer,
@@ -2739,10 +3131,11 @@ def main() -> int:
                                                    speculative, weights)
     from openhush_tpu_torch.models.whisper import model as whisper
     from openhush_tpu_torch.models.whisper.config import get_config
-    from openhush_tpu_torch.ops import (_build, decode_attention,
-                                        flash_attention, frontend, mel,
+    from openhush_tpu_torch.models import silero, vad, wakeword
+    from openhush_tpu_torch.ops import (_build, decode_attention, denoise,
+                                        dsp, flash_attention, frontend, mel,
                                         quantize)
-    from openhush_tpu_torch.runtime import batcher, longform
+    from openhush_tpu_torch.runtime import batcher, daemon, longform
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.runtime.server import EngineServer
     from openhush_tpu_torch.training import data, train
@@ -2770,6 +3163,7 @@ def main() -> int:
     int8_rows = phase_int8_self_cache(decode_attention, quantize)
     beam_rows = phase_beam_attention(decode_attention, quantize)
     spec_rows = phase_spec_attention(decode_attention, quantize)
+    dsp_rows = phase_dsp_kernels(dsp, denoise)
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -2810,6 +3204,14 @@ def main() -> int:
     t = time.monotonic()
     launches, _ = phase_serving(eng, longform, whisper, counters, n_layer)
     log(f"phase 4c serving path: {time.monotonic() - t:.1f} s")
+
+    # 4c-audio: the daemon's audio front on the same bf16 weights.
+    t = time.monotonic()
+    dsp_launches = phase_audio_front(eng, longform, dsp, denoise, daemon, vad,
+                                     silero, wakeword, counters)
+    for r in dsp_rows:
+        r["launches"] = dsp_launches[r["counter"].__name__]
+    log(f"phase 4c-audio audio front: {time.monotonic() - t:.1f} s")
 
     # 4d: the int8 rungs on the same weights: int8 decoder weights and the
     # W8A8 encoder in the one-shot engine, then the server with an int8
@@ -2869,7 +3271,7 @@ def main() -> int:
     log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows + int8_rows + beam_rows + spec_rows:
+    for r in rows + int8_rows + beam_rows + spec_rows + dsp_rows:
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
@@ -2888,7 +3290,10 @@ def main() -> int:
                     "self_write_launches", "all_keys_bound_ms",
                     "oneshot_launches", "int8_self_launches",
                     "verify_launches", "draft_launches", "server_launches",
-                    "server_verify_launches", *(
+                    "server_verify_launches", "chain_bound_ms", *(
+                        "chunk5s_" + name for name in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "chain_bound_ms")), *(
                         pre + name for pre in ("oneshot_", "int8_",
                                                "oneshot_int8_", "t512_",
                                                "draft_bf16_")

@@ -5,7 +5,8 @@ convert.py): per-layer weights stacked on a leading [n_layer] axis, linear
 weights [in, out] (y = x @ W + b), conv stems HIO [3, in, out]. Weights move
 between the two packages as numpy arrays, through `from_numpy_params`, or
 as the `.npz` files that `openhush_tpu.models.whisper.convert.save_npz`
-writes (`load_npz` below is a copy of its reader).
+writes (`save_npz` and `load_npz` below are copies of its writer and
+reader).
 """
 
 from __future__ import annotations
@@ -18,6 +19,23 @@ from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.models.whisper.model import sinusoids
 
 Params = dict
+
+
+def save_npz(params: dict, path: str) -> None:
+    """Nested dict of arrays → a flat `a/b/c` .npz (the reference's
+    convert.save_npz)."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = (node.detach().cpu().numpy()
+                            if torch.is_tensor(node) else np.asarray(node))
+
+    walk("", params)
+    np.savez(path, **flat)
 
 
 def load_npz(path: str) -> dict:
@@ -51,7 +69,10 @@ def from_numpy_params(tree, dtype: torch.dtype = torch.float32,
     JAX `init_params` output) → the same nesting of torch tensors on
     `device`, floating arrays cast to `dtype`. An int8 weight {"q": int8,
     "s": scales} (the reference's quantize_*_weights) keeps int8 levels
-    and fp32 scales whatever `dtype` is."""
+    and fp32 scales whatever `dtype` is. A Python int stays an int (the
+    RNNoise layers' `act` selectors); so this also carries the aux models'
+    weights over: Silero, the GRU VAD, denoise's RNN, the wake-word
+    embedding and classifier, and RNNoise."""
     device = resolve_device(device)
 
     def walk(node, dt=dtype):
@@ -59,6 +80,8 @@ def from_numpy_params(tree, dtype: torch.dtype = torch.float32,
             scale_dt = torch.float32 if set(node) == {"q", "s"} else dt
             return {k: walk(v, scale_dt if k == "s" else dt)
                     for k, v in node.items()}
+        if isinstance(node, int):
+            return node
         return _to_tensor(node, dt, device)
 
     return walk(tree)

@@ -47,6 +47,9 @@ SIGNATURES = {
     "oh_quantize_heads_kv": [_P] * 6 + [_LL, _I, _I, _P],
     "oh_decode_attention": [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 4
                            + [_F, _I, _I, _I, _P],
+    "oh_envelope": [_P, _P, _LL, _I, _F, _F, _P],
+    "oh_limiter_gain": [_P, _P, _LL, _I, _F, _P],
+    "oh_noise_floor": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -83,6 +83,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert eng.params["decoder"]["tok_emb"].device.type == "cpu"
 
 
+def test_audio_front_needs_cuda_unless_cpu_is_asked():
+    """The audio front's entry points default to CUDA as the engine does."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from openhush_tpu_torch.models import silero, vad, wakeword
+    from openhush_tpu_torch.ops import denoise
+    from openhush_tpu_torch.runtime.daemon import build_preprocess
+
+    class Cfg:
+        engine, threshold, model_path = "energy", 0.5, ""
+
+    for make in (lambda: build_preprocess(Cfg()), vad.VadEngine,
+                 lambda: vad.create_engine(Cfg()), silero.SileroVad,
+                 wakeword.WakeWordDetector, denoise.init_state):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert vad.VadEngine(device="cpu").device.type == "cpu"
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """On a device other than the CPU a wrapper launches its kernel or
     raises; the 'meta' device stands in for one here."""
@@ -95,6 +114,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         flash_attention.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         frontend.log_mel(torch.empty(1, 480000, device="meta"))
+    from openhush_tpu_torch.ops import denoise, dsp
+    a = torch.empty(480000, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dsp.follow_envelope(a, 0.9, 0.99)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dsp.limiter_gain(a, 0.99)
+    with pytest.raises(ValueError, match="unsupported device"):
+        denoise.noise_floor(torch.empty(3000, 22, device="meta"),
+                            torch.empty(22, device="meta"))
 
 
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
