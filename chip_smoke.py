@@ -108,6 +108,16 @@ Phases, each printing its own lines and its seconds:
      draft, with spec_force_accept and on the int8 self-cache, state_bytes
      beside the allocation, launch counts held, tokens held to a plain
      server's up to the same tie margin;
+  4g. draft distillation on the bf16 weights: training/distill.py's
+     distill_draft of a large-v3-turbo-shaped draft (4 decoder layers, d
+     1280) on 8 rollout batches (and a held-out one) of 8 varied
+     speech-like windows x 48 tokens, 6 epochs, under a time budget, with
+     K1-K5's launches over exactly that run held to the rollouts' encodes,
+     cross-KVs and flat decoder calls; then the distilled draft (and the
+     engine's random one beside it) in the one-shot speculative loop on
+     two held-out windows, tokens held to greedy's up to the first
+     near-tie (phase 4f's margin), and in a 1-slot spec server against a
+     plain server: tokens a verify;
   5. the CLI in a subprocess: `python -m openhush_tpu_torch.cli transcribe
      <wav> --model large-v3 --random-init --format json`, the same with
      `--beam-size 5` and with `--draft large-v3-turbo`, then with three
@@ -116,12 +126,27 @@ Phases, each printing its own lines and its seconds:
      seed 0) over two synthetic WAVs, 5 steps, with the launch counts of the
      encoder attention's forward in residual mode (K2) and of its backward
      kernels (K6, K7) read over exactly that run;
+  7. the ONNX executor (models/onnx2torch.py): a Silero-v5-signature
+     graph and openWakeWord's two stages at their I/O widths, written by
+     the phase with random weights, through vad.create_engine
+     (OnnxSileroVad on the card) and WakeWordDetector.from_onnx, card
+     against CPU, host wall and device busy per chunk;
+  8. diarization: DiarizationEngine.from_local() (the packaged
+     checkpoints) on 45 s of two synthetic speakers in 5 s chunks, card
+     against CPU (embeddings, segments, speakers), host wall per chunk, DER
+     on three synthetic meetings (card equal to CPU), and 50
+     train_embedder steps on the card (the loss falls);
+  9. M2M-100 418M at its published widths (random weights, fp32):
+     greedy_translate of 2 rows of 32 source tokens to 256 tokens, the
+     first row's first 16 tokens against the CPU's, wall per token, host
+     wall and device busy per decode step, peak memory;
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row, from 4f's one-shot speculative engine for the two verify
-rows, from 4c-audio's preprocess server for the three DSP rows) and, last,
-the `{"ok": true, "device": ...}` line. Any failure raises, so the script
+rows, from 4c-audio's preprocess server for the three DSP rows; K1-K5 also
+carry phase 4g's launches as distill_launches) and, last, the
+`{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
 """
@@ -2500,6 +2525,582 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
     return {fn.__name__: launches[fn.__name__] for fn in dsp_fns}
 
 
+# ---------------------------------------------------------------------------
+# .onnx graphs with the published aux models' signatures (written here: no
+# checkpoint is downloaded), for phase_onnx and tests/test_torch_onnx.py
+# ---------------------------------------------------------------------------
+
+def _onnx_model(nodes, inits, inputs, outputs):
+    from openhush_tpu_torch.utils.onnx_io import (OnnxGraph, OnnxModel,
+                                                  OnnxValueInfo)
+    return OnnxModel(OnnxGraph(
+        nodes=nodes, initializers=inits,
+        inputs=[OnnxValueInfo(n, t, s) for n, t, s in inputs],
+        outputs=[OnnxValueInfo(n, 1, ()) for n in outputs]))
+
+
+def silero_v5_graph(rng: np.random.Generator):
+    """Silero VAD v5's signature and widths, random weights: (input
+    [1, 512], state [2, 1, 128], sr int64) → (output [1, 1], stateN
+    [2, 1, 128]). An If on sr == 16000 picks the STFT basis (a subgraph
+    initializer), then: reflect pad 64, the STFT as a stride-128 Conv
+    ([258, 1, 256] hann-windowed DFT rows), magnitudes, the four encoder
+    convolutions (129→128→64→64→128, k3, strides 1, 2, 2, 1) with ReLU, an
+    LSTM cell (hidden 128) on the state's h and c, a 1x1 Conv, sigmoid and
+    a mean."""
+    from openhush_tpu_torch.utils.onnx_io import OnnxGraph, OnnxNode, \
+        OnnxValueInfo
+    n = np.arange(256)
+    ang = 2 * np.pi * np.outer(np.arange(129), n) / 256
+    basis = (np.concatenate([np.cos(ang), -np.sin(ang)])
+             * np.hanning(257)[:-1]).astype(np.float32)[:, None, :]
+
+    def g(*shape):
+        fan = int(np.prod(shape[1:]))
+        return (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    def branch(b):
+        return OnnxGraph(nodes=[OnnxNode("Identity", ["b"], ["basis"])],
+                         initializers={"b": b}, inputs=[],
+                         outputs=[OnnxValueInfo("basis")])
+
+    H = 128
+    inits = {
+        "pads": np.asarray([0, 0, 0, 64], np.int64),
+        "sr16k": np.asarray(16000, np.int64),
+        "zero": np.asarray(0, np.int64), "one": np.asarray(1, np.int64),
+        "w0": g(128, 129, 3), "b0": g(128, 1)[:, 0],
+        "w1": g(64, 128, 3), "b1": g(64, 1)[:, 0],
+        "w2": g(64, 64, 3), "b2": g(64, 1)[:, 0],
+        "w3": g(128, 64, 3), "b3": g(128, 1)[:, 0],
+        "W": g(1, 4 * H, H), "R": g(1, 4 * H, H),
+        "B": (0.1 * rng.standard_normal((1, 8 * H))).astype(np.float32),
+        "wo": g(1, H, 1), "bo": np.zeros(1, np.float32),
+    }
+    N = OnnxNode
+    conv = [N("Conv", ["mag", "w0", "b0"], ["c0"],
+              attrs={"kernel_shape": [3], "pads": [1, 1]}),
+            N("Relu", ["c0"], ["r0"]),
+            N("Conv", ["r0", "w1", "b1"], ["c1"], attrs={
+                "kernel_shape": [3], "pads": [1, 1], "strides": [2]}),
+            N("Relu", ["c1"], ["r1"]),
+            N("Conv", ["r1", "w2", "b2"], ["c2"], attrs={
+                "kernel_shape": [3], "pads": [1, 1], "strides": [2]}),
+            N("Relu", ["c2"], ["r2"]),
+            N("Conv", ["r2", "w3", "b3"], ["c3"],
+              attrs={"kernel_shape": [3], "pads": [1, 1]}),
+            N("Relu", ["c3"], ["r3"])]
+    nodes = [
+        N("Equal", ["sr", "sr16k"], ["is16k"]),
+        N("If", ["is16k"], ["basis"], attrs={
+            "then_branch": branch(basis), "else_branch": branch(0.5 * basis)}),
+        N("Pad", ["input", "pads"], ["padded"], attrs={"mode": "reflect"}),
+        N("Unsqueeze", ["padded"], ["x3"], attrs={"axes": [1]}),
+        N("Conv", ["x3", "basis"], ["spec"],
+          attrs={"kernel_shape": [256], "strides": [128]}),
+        N("Slice", ["spec", "s0", "s129", "ax1"], ["re"]),
+        N("Slice", ["spec", "s129", "s258", "ax1"], ["im"]),
+        N("Mul", ["re", "re"], ["re2"]), N("Mul", ["im", "im"], ["im2"]),
+        N("Add", ["re2", "im2"], ["pow"]), N("Sqrt", ["pow"], ["mag"]),
+        *conv,
+        N("Transpose", ["r3"], ["seq"], attrs={"perm": [2, 0, 1]}),
+        N("Gather", ["state", "zero"], ["h"], attrs={"axis": 0}),
+        N("Gather", ["state", "one"], ["c"], attrs={"axis": 0}),
+        N("Unsqueeze", ["h"], ["h0"], attrs={"axes": [0]}),
+        N("Unsqueeze", ["c"], ["c0"], attrs={"axes": [0]}),
+        N("LSTM", ["seq", "W", "R", "B", "", "h0", "c0"],
+          ["Y", "Yh", "Yc"], attrs={"hidden_size": H}),
+        N("Relu", ["Yh"], ["hr"]),
+        N("Transpose", ["hr"], ["hc"], attrs={"perm": [1, 2, 0]}),
+        N("Conv", ["hc", "wo", "bo"], ["logit"], attrs={"kernel_shape": [1]}),
+        N("Sigmoid", ["logit"], ["p"]),
+        N("ReduceMean", ["p"], ["output"], attrs={"axes": [2],
+                                                  "keepdims": 0}),
+        N("Concat", ["Yh", "Yc"], ["stateN"], attrs={"axis": 0}),
+    ]
+    inits.update({"s0": np.asarray([0], np.int64),
+                  "s129": np.asarray([129], np.int64),
+                  "s258": np.asarray([258], np.int64),
+                  "ax1": np.asarray([1], np.int64)})
+    return _onnx_model(nodes, inits, [("input", 1, (1, 512)),
+                                      ("state", 1, (2, 1, H)),
+                                      ("sr", 7, ())],
+                       ["output", "stateN"])
+
+
+def wakeword_graphs(rng: np.random.Generator):
+    """openWakeWord's two ONNX stages at their I/O widths, random weights:
+    the embedding ([1, 76, 32, 1] mel image → [1, 1, 1, 96]: 3x3 Convs
+    24 → 48 → 96 with LeakyReLU, BatchNormalization, 2x2 MaxPools and a
+    global max) and a per-word classifier ([1, 16, 96] → [1, 1]: Flatten,
+    Gemm 1536 → 128, LayerNormalization, ReLU, Gemm → 1, sigmoid)."""
+    from openhush_tpu_torch.utils.onnx_io import OnnxNode as N
+
+    def g(*shape, fan=None):
+        fan = fan or int(np.prod(shape[1:]))
+        return (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    def bn(c):
+        return {"bn_s": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                "bn_b": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                "bn_m": (0.1 * rng.standard_normal(c)).astype(np.float32),
+                "bn_v": (0.5 + rng.random(c)).astype(np.float32)}
+
+    same = {"kernel_shape": [3, 3], "auto_pad": "SAME_UPPER"}
+    pool = {"kernel_shape": [2, 2], "strides": [2, 2]}
+    emb = _onnx_model([
+        N("Transpose", ["input_1"], ["x"], attrs={"perm": [0, 3, 1, 2]}),
+        N("Conv", ["x", "w1", "b1"], ["c1"], attrs=same),
+        N("LeakyRelu", ["c1"], ["a1"], attrs={"alpha": 0.2}),
+        N("MaxPool", ["a1"], ["p1"], attrs=pool),
+        N("Conv", ["p1", "w2", "b2"], ["c2"], attrs=same),
+        N("BatchNormalization", ["c2", "bn_s", "bn_b", "bn_m", "bn_v"],
+          ["n2"], attrs={"epsilon": 1e-3}),
+        N("LeakyRelu", ["n2"], ["a2"], attrs={"alpha": 0.2}),
+        N("MaxPool", ["a2"], ["p2"], attrs=pool),
+        N("Conv", ["p2", "w3", "b3"], ["c3"], attrs={
+            "kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}),
+        N("Relu", ["c3"], ["a3"]),
+        N("GlobalMaxPool", ["a3"], ["gp"]),
+        N("Transpose", ["gp"], ["out"], attrs={"perm": [0, 2, 3, 1]}),
+    ], {"w1": g(24, 1, 3, 3), "b1": g(24, 1)[:, 0],
+        "w2": g(48, 24, 3, 3), "b2": g(48, 1)[:, 0],
+        "w3": g(96, 48, 3, 3), "b3": g(96, 1)[:, 0], **bn(48)},
+        [("input_1", 1, (1, 76, 32, 1))], ["out"])
+    cls_m = _onnx_model([
+        N("Flatten", ["x"], ["f"], attrs={"axis": 1}),
+        N("Gemm", ["f", "w1", "b1"], ["h"]),
+        N("LayerNormalization", ["h", "ln_s", "ln_b"], ["hn"],
+          attrs={"axis": -1, "epsilon": 1e-5}),
+        N("Relu", ["hn"], ["hr"]),
+        N("Gemm", ["hr", "w2", "b2"], ["o"], attrs={"transB": 1}),
+        N("Sigmoid", ["o"], ["score"]),
+    ], {"w1": g(1536, 128, fan=1536), "b1": np.zeros(128, np.float32),
+        "ln_s": np.ones(128, np.float32), "ln_b": np.zeros(128, np.float32),
+        "w2": g(1, 128), "b2": np.asarray([0.1], np.float32)},
+        [("x", 1, (1, 16, 96))], ["score"])
+    return emb, cls_m
+
+
+# ---------------------------------------------------------------------------
+# The aux models and the rest of training
+# ---------------------------------------------------------------------------
+
+SILERO_CHUNKS = 300          # 9.6 s of gated speech, 32 ms a chunk
+WAKE_CHUNKS = 60             # 4.8 s, 80 ms a chunk
+
+
+def phase_onnx(vad, wakeword, onnx_io, tmp):
+    """The ONNX executor on the card: a Silero-v5-signature graph and the
+    two wake-word stages at their published widths (written here, random
+    weights), card against CPU within GATE_TOL, and per-chunk costs."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 75)
+    sil_path = os.path.join(tmp, "silero_vad.onnx")
+    onnx_io.save(silero_v5_graph(rng), sil_path)
+    emb, cls_m = wakeword_graphs(rng)
+    ep, cp = os.path.join(tmp, "emb.onnx"), os.path.join(tmp, "cls.onnx")
+    onnx_io.save(emb, ep)
+    onnx_io.save(cls_m, cp)
+
+    class Cfg:
+        engine, threshold, model_path = "silero", 0.5, sil_path
+
+    engines = {d: vad.create_engine(Cfg(), device=d) for d in (dev, "cpu")}
+    check(all(isinstance(e, vad.OnnxSileroVad) for e in engines.values())
+          and engines[dev].device.type == "cuda",
+          "create_engine built OnnxSileroVad on the card")
+    audio = gated_speech()
+    chunks = [audio[i * vad.CHUNK_SIZE:(i + 1) * vad.CHUNK_SIZE]
+              for i in range(SILERO_CHUNKS)]
+    probs = {d: [e.process(c).probability for c in chunks]
+             for d, e in engines.items()}
+    err = float(np.abs(np.subtract(probs[dev], probs["cpu"])).max())
+    log(f"  ONNX Silero (v5 signature): {SILERO_CHUNKS} chained chunks, "
+        f"probabilities {min(probs[dev]):.4f}-{max(probs[dev]):.4f}, card vs "
+        f"CPU max_abs_err {err:.3e} (tolerance {GATE_TOL})")
+    check(err <= GATE_TOL and len(set(probs[dev])) > 1,
+          "ONNX Silero probabilities card vs CPU")
+    dets = {d: wakeword.WakeWordDetector.from_onnx(ep, cp, device=d)
+            for d in (dev, "cpu")}
+    step = wakeword.CHUNK_SAMPLES
+    scores = {d: [det.process(audio[i * step:(i + 1) * step])
+                  for i in range(WAKE_CHUNKS)] for d, det in dets.items()}
+    warm = [(a, b) for a, b in zip(scores[dev], scores["cpu"])
+            if a is not None or b is not None]
+    check(warm and all(a is not None and b is not None for a, b in warm),
+          "ONNX wake word: card and CPU warm at the same chunk")
+    err = max(abs(a - b) for a, b in warm)
+    log(f"  ONNX wake word: {WAKE_CHUNKS} chunks, {len(warm)} scores, card "
+        f"vs CPU max_abs_err {err:.3e} (tolerance {GATE_TOL})")
+    check(err <= GATE_TOL, "ONNX wake-word scores card vs CPU")
+    card, det = engines[dev], dets[dev]
+    timings = {"ONNX Silero chunk (32 ms)": host_and_device(
+                   lambda: card.process(chunks[100]), 50),
+               "ONNX wake-word chunk (80 ms)": host_and_device(
+                   lambda: det.process(audio[:step]), 50)}
+    for what, (wall, busy) in timings.items():
+        log(f"  {what}: host wall {wall:.3f} ms, device busy "
+            + (f"{busy:.4f} ms" if busy is not None else "not measured "
+               "(the profiler saw no device events)"))
+    return timings
+
+
+def conversation(sp, secs: float, seed: int) -> np.ndarray:
+    """Two synthetic voices (training/speaker.py) taking turns of 1.5-3 s
+    with 0.3-0.8 s gaps, `secs` long."""
+    rng = np.random.default_rng(seed)
+    bank = sp.synth_speaker_bank(rng, 2)
+    n = int(secs * 16000)
+    out, t, turn = np.zeros(n, np.float32), 0, 0
+    while t < n - 8000:
+        length = min(int(rng.uniform(1.5, 3.0) * 16000), n - t)
+        out[t:t + length] = sp.synth_utterance(rng, bank[turn % 2], length)
+        t += length + int(rng.uniform(0.3, 0.8) * 16000)
+        turn += 1
+    return out
+
+
+def phase_diarization(diarization, der, sp, tmp):
+    """DiarizationEngine.from_local() (the packaged checkpoints) on 45 s of
+    two synthetic speakers in 5 s chunks, card against CPU: embeddings,
+    segments and speakers; DER on three synthetic meetings (card and CPU
+    equal); host wall per chunk; fifty train_embedder steps on the card."""
+    dev = torch.device("cuda")
+    env = os.environ.get("OPENHUSH_MODEL_DIR")
+    os.environ["OPENHUSH_MODEL_DIR"] = os.path.join(tmp, "models")
+    try:
+        engines = {d: diarization.DiarizationEngine.from_local(device=d)
+                   for d in (dev, "cpu")}
+    finally:
+        if env is None:
+            del os.environ["OPENHUSH_MODEL_DIR"]
+        else:
+            os.environ["OPENHUSH_MODEL_DIR"] = env
+    check(all(e.seg_params is not None for e in engines.values()),
+          "from_local loaded the packaged segmentation net")
+    embs = {d: [] for d in engines}
+    for d, e in engines.items():
+        embed = e.embed
+        e.embed = lambda a, embed=embed, out=embs[d]: (
+            out.append(embed(a)) or out[-1])
+    audio = conversation(sp, 45.0, SEED + 85)
+    win = 5 * 16000
+    segs, walls = {}, []
+    for d, e in engines.items():
+        segs[d] = []
+        for s0 in range(0, len(audio), win):
+            t0 = time.perf_counter()
+            segs[d] += [(s.start_secs, s.end_secs, s.speaker_id)
+                        for s in e.diarize_chunk(audio[s0:s0 + win],
+                                                 offset_secs=s0 / 16000)]
+            if d == dev:
+                walls.append((time.perf_counter() - t0) * 1e3)
+    err = max((float(np.abs(a - b).max())
+               for a, b in zip(embs[dev], embs["cpu"])), default=0.0)
+    same = segs[dev] == segs["cpu"]
+    n_spk = engines[dev].clusterer.n_speakers
+    log(f"  diarization, 45 s of two synthetic speakers in 5 s chunks: "
+        f"{len(segs[dev])} segments, {n_spk} speakers; card vs CPU: "
+        f"{len(embs[dev])} embeddings, max_abs_err {err:.3e} (tolerance "
+        f"{GATE_TOL}), segments and speakers "
+        + ("equal" if same else "DIFFERENT"))
+    check(len(embs[dev]) == len(embs["cpu"]) > 0 and err <= GATE_TOL,
+          "diarization embeddings card vs CPU")
+    check(same and n_spk == engines["cpu"].clusterer.n_speakers,
+          "diarization segments and speakers card vs CPU")
+    log(f"  diarization host wall a 5 s chunk (card): median "
+        f"{float(np.median(walls)):.2f} ms, max {max(walls):.2f} ms over "
+        f"{len(walls)} chunks")
+    results = {}
+    for d, e in engines.items():
+        e.reset()
+        t0 = time.perf_counter()
+        results[d] = der.evaluate_synthetic_meetings(e, n_meetings=3,
+                                                     seed=SEED + 86,
+                                                     secs=20.0)
+        if d == dev:
+            der_wall = time.perf_counter() - t0
+    log(f"  DER, three synthetic meetings (20 s each, 2-4 speakers, 5 s "
+        f"chunks): card {results[dev]}; CPU DER {results['cpu'].der:.4f}; "
+        f"{der_wall:.2f} s wall on the card")
+    check(math.isfinite(results[dev].der)
+          and results[dev].der == results["cpu"].der,
+          "DER card == CPU")
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp.train_embedder(seed=SEED, n_speakers=8, steps=50, batch=24,
+                      device=dev, losses=losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    log(f"  train_embedder on the card: 50 steps (batch 24, 8 speakers) in "
+        f"{wall:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+        f"the first ten {first:.4f}, of the last ten {last:.4f})")
+    check(len(losses) == 50 and all(map(math.isfinite, losses))
+          and last < first, "the embedder's training loss falls")
+    return {"chunk_ms": float(np.median(walls)), "der": results[dev].der}
+
+
+M2M_SRC = 32                 # source tokens a row, EOS included
+M2M_CPU_STEPS = 16
+
+
+def phase_m2m100(m2m100, train):
+    """M2M-100 418M at its published widths (random weights, fp32): greedy
+    translation of 2 rows of 32 source tokens to MAX_NEW_TOKENS (256), the
+    card's first row against the CPU's over 16 steps, wall per token,
+    device busy per decode step and peak memory."""
+    dev = torch.device("cuda")
+    cfg = m2m100.CONFIGS["418M"]
+    check((cfg.vocab_size, cfg.d_model, cfg.n_heads, cfg.n_enc_layers,
+           cfg.n_dec_layers, cfg.ffn_dim) == (128112, 1024, 16, 12, 12, 4096),
+          "M2M-100 418M's published widths")
+    t0 = time.perf_counter()
+    cpu = m2m100.init_params(cfg, torch.Generator().manual_seed(SEED + 80),
+                             device="cpu")
+    params = to_device(cpu, dev)
+    n_params = sum(t.numel() for t in train.leaves(cpu))
+    log(f"  M2M-100 418M: {n_params / 1e6:.1f}M parameters (fp32, random, "
+        f"seed {SEED + 80}) in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 81)
+    src = np.concatenate([rng.integers(3, cfg.lang_token_base,
+                                       (2, M2M_SRC - 1)),
+                          np.full((2, 1), m2m100.EOS)], axis=1)
+    src_t = torch.from_numpy(src).to(dev)
+    lang = m2m100.lang_token_id(cfg, "de")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = m2m100.greedy_translate(cfg, params, src_t, lang,
+                                  max_new=m2m100.MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = out.cpu().numpy()
+    steps = int((out != m2m100.PAD).any(axis=0).sum())
+    check(out.shape == (2, m2m100.MAX_NEW_TOKENS)
+          and ((out >= 0) & (out < cfg.vocab_size)).all() and steps > 0,
+          "M2M-100 tokens in range")
+    with torch.no_grad():
+        ref = m2m100.greedy_translate(cfg, cpu, torch.from_numpy(src[:1]),
+                                      lang, max_new=M2M_CPU_STEPS).numpy()
+    first = next((j for j in range(M2M_CPU_STEPS)
+                  if out[0, j] != ref[0, j]), M2M_CPU_STEPS)
+    log(f"  M2M-100 greedy_translate, 2 rows x {M2M_SRC} source tokens -> "
+        f"'__de__', {steps} steps (cap {m2m100.MAX_NEW_TOKENS}): {wall:.2f} s "
+        f"wall = {wall * 1e3 / steps:.2f} ms a step "
+        f"({wall * 1e3 / (2 * steps):.2f} ms a token), peak memory {peak:.2f} GiB; row 0 card vs CPU over "
+        f"{M2M_CPU_STEPS} steps: "
+        + ("equal" if first == M2M_CPU_STEPS else f"part at step {first}"))
+    check(first == M2M_CPU_STEPS, "M2M-100 card tokens == CPU's (row 0, "
+          "16 steps)")
+    with torch.no_grad():
+        feats = m2m100.encode(cfg, params, src_t)
+        xkv = m2m100.compute_cross_kv(cfg, params, feats)
+        cache = m2m100.init_kv_cache(cfg, 2, max_len=m2m100.MAX_NEW_TOKENS + 2,
+                                     device=dev)
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        host, dev_ms, busy, by_name = per_call(
+            lambda: m2m100.decode(cfg, params, tok, 100, cache, xkv, src_t))
+    log(f"  M2M-100 decode step (2 rows, S=1, 12 layers): {host:.2f} ms host "
+        f"wall, " + (f"{dev_ms:.3f} ms device busy" if busy else
+                     "device time not measured (no device events)"))
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"    {us / busy:6.1%}  {kname[:80]}")
+    del params
+    return {"ms_per_token": wall * 1e3 / (2 * steps), "step_host_ms": host,
+            "step_device_ms": dev_ms}
+
+
+DISTILL_B = 8
+DISTILL_GEN = 48
+DISTILL_BATCHES = 8
+DISTILL_EPOCHS = 6
+DISTILL_BUDGET_S = 150.0
+
+
+def varied_speech(rng: np.random.Generator, secs: float = 30.0
+                  ) -> np.ndarray:
+    """speechlike() with a random pitch, pitch swing, syllable rate and
+    noise level a window."""
+    n = int(16000 * secs)
+    t = np.arange(n) / 16000
+    f0 = rng.uniform(90, 260) + rng.uniform(10, 60) * np.sin(
+        2 * np.pi * rng.uniform(0.2, 1.0) * t)
+    x = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000) * (
+        0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+    return (x + rng.uniform(0.01, 0.08) * rng.standard_normal(n)
+            ).astype(np.float32)
+
+
+def phase_distill(seng, distill, speculative, decoding, whisper, frontend,
+                  counters, n_layer, EngineServer, batcher, get_config,
+                  tie_threshold):
+    """Distillation of a large-v3-turbo-shaped draft (4 decoder layers, d
+    1280) against the large-v3 teacher (bf16, the engine's weights):
+    distill_draft on B=8 rows of varied speech-like windows, 48 tokens,
+    8 rollout batches (+1 held out), 6 epochs, under a time budget, the
+    launches of K1-K5 counted over exactly that run; then the distilled
+    draft in the one-shot speculative loop (and the engine's random draft
+    beside it) on two held-out windows, tokens held to greedy's up to the
+    first near-tie, and in a 1-slot spec server against a plain server."""
+    dev = torch.device("cuda")
+    cfg, params, tok = seng.cfg, seng.params, seng.tokenizer
+    dcfg = get_config("large-v3-turbo")
+    check(dcfg.n_text_layer == 4 and dcfg.n_text_state == 1280,
+          "the draft is large-v3-turbo-shaped")
+    opts = decoding.DecodingOptions(language="en",
+                                    max_new_tokens=MAX_NEW_TOKENS)
+    prompt = np.tile(np.asarray(tok.sot_sequence("en"), np.int64),
+                     (DISTILL_B, 1))
+    suppress = decoding.build_suppress_mask(tok, cfg, opts)
+
+    def mel_fn(rng):
+        audio = torch.from_numpy(np.stack(
+            [varied_speech(rng) for _ in range(DISTILL_B)])).to(dev)
+        return frontend.log_mel(audio, cfg.n_mels).float().cpu().numpy()
+
+    flat = whisper._decode_flat_ro
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    flat.calls = flat.layers = 0
+    t0 = time.perf_counter()
+    draft, stats = distill.distill_draft(
+        cfg, params, dcfg, mel_fn, prompt, suppress,
+        n_batches=DISTILL_BATCHES, epochs=DISTILL_EPOCHS,
+        gen_tokens=DISTILL_GEN, lr=1e-3, seed=SEED + 7,
+        time_budget_s=DISTILL_BUDGET_S, log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  distill_draft: {wall:.2f} s wall, peak memory {peak:.2f} GiB; "
+        f"stats {json.dumps(stats)}")
+    n_roll = stats["rollout_batches"] + 1
+    check(stats["steps"] >= 1 and math.isfinite(stats["heldout_ce"])
+          and not stats["heldout_is_train"], "distill_draft stats")
+    check(stats["heldout_ce"] < stats["init_heldout_ce"],
+          "distillation lowered the held-out CE")
+    # K1 a rollout batch; K2 and K3 a layer a batch (and K3 a draft layer
+    # for each held-out eval); K4 = K5 = a layer for each flat decoder call
+    # (a prefill and 47 steps a batch).
+    check(launches["log_mel_energies"] == n_roll
+          and launches["flash_attention"] == n_layer * n_roll
+          and launches["quantize_heads_kv"] == (n_layer * n_roll
+                                                + 2 * dcfg.n_text_layer)
+          and flat.calls == DISTILL_GEN * n_roll
+          and launches["attend_decode"] == launches["attend_decode_pipelined"]
+          == n_layer * flat.calls, f"distill launches {launches}, "
+          f"{flat.calls} flat calls")
+    out = {"stats": stats, "wall_s": wall, "launches": launches}
+
+    # The one-shot loop on two held-out windows, one at a time: greedy (its
+    # filtered top-two margins recorded), the distilled draft, the random
+    # draft.
+    rng = np.random.default_rng(SEED + 95)
+    windows = [varied_speech(rng) for _ in range(2)]
+    loop = speculative.speculative_greedy_loop
+    ts_filter, eot = decoding._timestamp_filter, tok.special.eot
+    drafts = {"distilled draft": (dcfg, draft),
+              "random draft": (seng.draft_cfg, seng.draft_params)}
+    totals = {name: [0, 0, 0.0] for name in drafts}   # tokens, verifies, s
+    for w, audio in enumerate(windows):
+        margins = []
+
+        def recording(lg, *a, **k):
+            res = ts_filter(lg, *a, **k)
+            top2 = res[0].topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+            return res
+
+        with torch.inference_mode():
+            feats = whisper.encode(cfg, params, frontend.log_mel(
+                torch.from_numpy(audio).to(dev)[None],
+                cfg.n_mels).to(seng.dtype))
+            xkv = seng._cross_kv(feats)
+            decoding._timestamp_filter = recording
+            try:
+                g = decoding.decode_greedy(cfg, params, xkv, tok, opts)
+            finally:
+                decoding._timestamp_filter = ts_filter
+            tie = next((j for j, x in enumerate(margins)
+                        if x < tie_threshold), len(margins))
+            for name, (dc, dp) in drafts.items():
+                dxkv = whisper.compute_cross_kv(dc, dp, feats)
+                before = loop.verifies
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = speculative.decode_speculative(
+                    cfg, params, dc, dp, xkv, dxkv, tok, opts,
+                    k_spec=K_ONESHOT)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                P = g.prompt_len
+                row, ref = res.tokens[0, P:], g.tokens[0, P:]
+                first = next((j for j in range(len(ref))
+                              if row[j] != ref[j]), len(ref))
+                check(first == len(ref) or first >= tie,
+                      f"speculative ({name}), window {w}: tokens == "
+                      f"greedy's up to the first near-tie")
+                m = emitted(res, MAX_NEW_TOKENS, eot)
+                t = totals[name]
+                t[0] += m - 1
+                t[1] += loop.verifies - before
+                t[2] += secs
+                log(f"  one-shot speculative, {name}, window {w}: {m} "
+                    f"tokens, {loop.verifies - before} verify passes, "
+                    f"{secs:.2f} s; tokens "
+                    + ("equal greedy's" if first == len(ref) else
+                       f"part from greedy's at step {first} (near-tie at "
+                       f"{tie})"))
+    for name, (m, nv, secs) in totals.items():
+        log(f"  one-shot speculative, {name} (K={K_ONESHOT}), 2 held-out "
+            f"windows: {m / nv:.2f} tokens a verify (beyond each window's "
+            f"first token), {secs:.2f} s wall")
+        out[name + "_per_verify"] = m / nv
+
+    # A 1-slot spec server with the distilled draft, against a plain server
+    # on the same window, up to the plain server's first near-tie.
+    audio = windows[0]
+    kw = dict(n_slots=1, inner_steps=8, dtype=torch.bfloat16, tokenizer=tok,
+              max_decode_len=128, temperatures=(0.0,), k_spec=K_SPEC)
+    margins, choose = [], batcher._choose_tokens
+
+    def recording_choose(lg, st, rows=None):
+        top2 = lg.topk(2, dim=-1).values
+        margins.append((top2[0, 0] - top2[0, 1]).item())
+        return choose(lg, st, rows)
+
+    batcher._choose_tokens = recording_choose
+    try:
+        [plain] = serve_windows(EngineServer(cfg, params, **kw), [audio])
+    finally:
+        batcher._choose_tokens = choose
+    tie = next((j for j, x in enumerate(margins) if x < tie_threshold),
+               len(margins))
+    srv = EngineServer(cfg, params, draft=(dcfg, draft), spec_policy="always",
+                       **kw)
+    t0 = time.perf_counter()
+    [got] = serve_windows(srv, [audio])
+    wall = time.perf_counter() - t0
+    iters = srv.spec_iters
+    first = next((j for j in range(min(len(got), len(plain)))
+                  if got[j] != plain[j]), min(len(got), len(plain)))
+    log(f"  spec server, distilled draft (1 slot, K={K_SPEC}): {len(got)} "
+        f"tokens in {iters} iterations = {(len(got) + 1) / iters:.2f} a "
+        f"verify, {wall:.2f} s; tokens vs the plain server's: "
+        + ("equal" if got == plain else f"part at step {first}"))
+    check(iters > 0 and (got == plain or first >= tie),
+          "distilled spec server tokens == plain server's up to the first "
+          "near-tie")
+    out["server_per_verify"] = (len(got) + 1) / iters
+    return out
+
+
 def check_beam_launches(launches, flat_calls, beam_calls, n_layer,
                         k3_writes=None):
     """Every flat decoder call launches K4 (direct) and K5 once a layer,
@@ -2840,6 +3441,7 @@ def phase_spec(seng, speculative, decoding, whisper, frontend, counters,
                 diff = max(diff, (vl[0, i].float() - steps[j][0]).abs()[
                     keep].max().item())
     thr = 4 * diff
+    out["tie_threshold"] = thr
     first_tie = next((j for j, (_, m) in enumerate(steps) if m < thr),
                      len(steps))
     log(f"  greedy on one 30 s window: {n} tokens; verify vs step logits on "
@@ -3131,14 +3733,16 @@ def main() -> int:
                                                    speculative, weights)
     from openhush_tpu_torch.models.whisper import model as whisper
     from openhush_tpu_torch.models.whisper.config import get_config
-    from openhush_tpu_torch.models import silero, vad, wakeword
+    from openhush_tpu_torch.models import (diarization, m2m100, silero, vad,
+                                           wakeword)
     from openhush_tpu_torch.ops import (_build, decode_attention, denoise,
                                         dsp, flash_attention, frontend, mel,
                                         quantize)
     from openhush_tpu_torch.runtime import batcher, daemon, longform
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.runtime.server import EngineServer
-    from openhush_tpu_torch.training import data, train
+    from openhush_tpu_torch.training import data, distill, speaker, train
+    from openhush_tpu_torch.utils import der, onnx_io
 
     t = time.monotonic()
     smi = subprocess.run(
@@ -3258,8 +3862,18 @@ def main() -> int:
                  draft_launches=spec["draft"],
                  server_launches=spec[server],
                  server_verify_launches=spec["server_verify"])
-    del seng
     log(f"phase 4f speculative decoding: {time.monotonic() - t:.1f} s")
+
+    # 4g: a large-v3-turbo-shaped draft distilled against the same bf16
+    # weights, then run by the one-shot loop and a 1-slot spec server.
+    t = time.monotonic()
+    dist = phase_distill(seng, distill, speculative, decoding, whisper,
+                         frontend, counters, n_layer, EngineServer, batcher,
+                         get_config, spec["tie_threshold"])
+    for r in rows[:5]:                      # K1-K5
+        r["distill_launches"] = dist["launches"][r["counter"].__name__]
+    del seng
+    log(f"phase 4g draft distillation: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
     phase_cli()
@@ -3269,6 +3883,17 @@ def main() -> int:
     launches.update(phase_finetune(data, train, weights, get_config,
                                    flash_attention))
     log(f"phase 6 large-v3 fine-tune: {time.monotonic() - t:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.monotonic()
+        phase_onnx(vad, wakeword, onnx_io, tmp)
+        log(f"phase 7 ONNX executor: {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        phase_diarization(diarization, der, speaker, tmp)
+        log(f"phase 8 diarization: {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    phase_m2m100(m2m100, train)
+    log(f"phase 9 M2M-100 418M: {time.monotonic() - t:.1f} s")
 
     kernels = []
     for r in rows + int8_rows + beam_rows + spec_rows + dsp_rows:
@@ -3290,7 +3915,8 @@ def main() -> int:
                     "self_write_launches", "all_keys_bound_ms",
                     "oneshot_launches", "int8_self_launches",
                     "verify_launches", "draft_launches", "server_launches",
-                    "server_verify_launches", "chain_bound_ms", *(
+                    "server_verify_launches", "chain_bound_ms",
+                    "distill_launches", *(
                         "chunk5s_" + name for name in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "chain_bound_ms")), *(

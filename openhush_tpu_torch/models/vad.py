@@ -9,9 +9,8 @@ interface, each a functional step (state, chunk) → (state, prob) on
 - gru: a Silero-like learned model (log-mel features → GRU → sigmoid);
   weights load from npz or come from an explicit generator.
 
-`SileroVad` (models/silero.py) is the third engine. The published
-Silero `.onnx` needs the ONNX executor, which the port does not have yet
-(ROADMAP A8): `OnnxSileroVad` raises.
+`SileroVad` (models/silero.py) is the third engine; `OnnxSileroVad` runs
+the published Silero `.onnx` on the ONNX executor (models/onnx2torch.py).
 
 The VadState streaming segmenter is a copy of the reference's, which
 reproduces src/vad/mod.rs:158-224 exactly: min_silence to end a segment,
@@ -32,6 +31,7 @@ import torch
 
 from openhush_tpu_torch.device import resolve_device
 from openhush_tpu_torch.models import silero
+from openhush_tpu_torch.models.onnx2torch import OnnxTorchModel
 from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
                                                        load_npz)
 from openhush_tpu_torch.ops.mel import mel_filter_bank
@@ -222,13 +222,45 @@ class VadEngine:
 
 
 class OnnxSileroVad:
-    """Silero VAD from the published .onnx. It needs an ONNX executor, which
-    the port does not have yet (ROADMAP A8)."""
+    """Silero VAD from the published .onnx, run by the ONNX executor
+    (models/onnx2torch.py) on `device` (CUDA unless the caller asks for the
+    CPU). The v5 graph signature is (input [1, 512], state [2, 1, 128], sr
+    scalar) → (prob, state); this wrapper threads the state on the device
+    and passes the sample rate as a static int64, so an `If` on it folds."""
 
-    def __init__(self, path: str, threshold: float = 0.5):
-        raise NotImplementedError(
-            f"OnnxSileroVad({path!r}): the ONNX executor is not ported yet "
-            "(ROADMAP A8); convert the model to a Silero .npz instead")
+    def __init__(self, path: str, threshold: float = 0.5, device=None):
+        self._model = OnnxTorchModel.load(path, device)
+        self.device = self._model.device
+        self.threshold = threshold
+        names = self._model.input_names
+        self._has_sr = any(n in ("sr", "sample_rate") for n in names)
+        self.reset()
+
+    def reset(self) -> None:
+        self._state = torch.zeros(2, 1, 128, device=self.device)
+
+    @torch.no_grad()
+    def process(self, samples: np.ndarray) -> VadResult:
+        chunk = np.zeros((1, CHUNK_SIZE), np.float32)
+        n = min(len(samples), CHUNK_SIZE)
+        chunk[0, :n] = samples[:n]
+        args = [torch.from_numpy(chunk).to(self.device), self._state]
+        if self._has_sr:
+            args.append(np.asarray(SAMPLE_RATE, np.int64))
+        out = self._model(*args)
+        prob, state = (out if isinstance(out, tuple) else (out, None))[:2]
+        if state is not None:
+            self._state = state
+        p = float(prob.reshape(-1)[0])
+        return VadResult(p, p >= self.threshold)
+
+    @property
+    def chunk_size(self) -> int:
+        return CHUNK_SIZE
+
+    @property
+    def sample_rate(self) -> int:
+        return SAMPLE_RATE
 
 
 # What a missing or broken model file raises while it is read.
@@ -240,15 +272,15 @@ def create_engine(cfg, device=None):
     """Build the configured VAD engine. A model file that is missing or
     broken falls back to the weight-free energy gate (reference behaviour:
     optional init logs and continues, src/daemon.rs:79-86); the fallback
-    covers reading the file only, never a kernel or device error, and an
-    `.onnx` Silero raises NotImplementedError (ROADMAP A8)."""
+    covers reading the file only, never a kernel or device error. A Silero
+    `.onnx` runs on the ONNX executor (OnnxSileroVad)."""
     engine = getattr(cfg, "engine", "energy")
     threshold = getattr(cfg, "threshold", 0.5)
     path = getattr(cfg, "model_path", "")
-    if engine == "silero" and path.endswith(".onnx"):
-        return OnnxSileroVad(path, threshold)
     params = pad_mode = None
     try:
+        if engine == "silero" and path.endswith(".onnx"):
+            return OnnxSileroVad(path, threshold, device)
         if engine == "silero":
             params, pad_mode = silero.load_npz(path)
         elif engine == "gru" and path:

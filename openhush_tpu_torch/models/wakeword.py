@@ -11,8 +11,8 @@ generator. The detector keeps the mel and embedding histories on the
 device and a refractory period, one classifier evaluation per 80 ms chunk.
 
 The embedding's convolution runs as fp32 matmuls (`silero.conv1d_fp32`),
-never cuDNN's TF32. Converted openWakeWord `.onnx` stages need the ONNX
-executor, which the port does not have yet (ROADMAP A8).
+never cuDNN's TF32. Converted openWakeWord `.onnx` stages run on the ONNX
+executor (`from_onnx`, models/onnx2torch.py).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from openhush_tpu_torch.device import resolve_device
+from openhush_tpu_torch.models.onnx2torch import OnnxTorchModel
 from openhush_tpu_torch.models.silero import conv1d_fp32
 from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
                                                        load_npz, save_npz)
@@ -151,14 +152,32 @@ class WakeWordDetector:
 
     @classmethod
     def from_onnx(cls, embedding_path: str, classifier_path: str,
-                  config: Optional[WakeWordConfig] = None
+                  config: Optional[WakeWordConfig] = None, device=None
                   ) -> "WakeWordDetector":
-        """Back stages 2+3 with converted openWakeWord .onnx graphs: needs
-        the ONNX executor, which the port does not have yet (ROADMAP A8)."""
-        raise NotImplementedError(
-            f"WakeWordDetector.from_onnx({embedding_path!r}, "
-            f"{classifier_path!r}): the ONNX executor is not ported yet "
-            "(ROADMAP A8)")
+        """Back stages 2+3 with converted openWakeWord .onnx graphs, run by
+        the ONNX executor (models/onnx2torch.py) on `device`.
+
+        openWakeWord's embedding model takes a [1, 76, 32, 1] mel image
+        and emits [1, 1, 1, 96]; the per-word classifier takes
+        [1, 16, 96] and emits [1, 1] (pipeline constants:
+        src/input/wake_word.rs:22-40). Adapters reshape between those
+        layouts and this detector's [76,32]/[16,96] histories."""
+        device = resolve_device(device)
+        emb = OnnxTorchModel.load(embedding_path, device)
+        cls_m = OnnxTorchModel.load(classifier_path, device)
+
+        def first(out):
+            return out[0] if isinstance(out, tuple) else out
+
+        def emb_fn(mel):
+            out = first(emb(mel.reshape(1, EMB_WINDOW, N_MEL_BINS, 1)))
+            return out.reshape(-1)[:EMB_DIM]
+
+        def cls_fn(embs):
+            out = first(cls_m(embs.reshape(1, CLS_WINDOW, EMB_DIM)))
+            return out.reshape(-1)[-1]
+
+        return cls(config, emb_fn=emb_fn, cls_fn=cls_fn, device=device)
 
     def reset(self) -> None:
         dev = self.device

@@ -686,26 +686,20 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     return _logits(cfg, dec, x), cache
 
 
-def forward(cfg: WhisperConfig, params: Params, mel: torch.Tensor,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced forward (training): mel [B, n_mels, 3000], tokens
-    [B, S] → logits [B, S, n_vocab_padded] fp32. Differentiable.
-
-    The reference (model.py:forward) runs `decode` over an empty cache of
-    S rows with the fp cross-KV. Here the decoder attends over the block's
-    own S keys with a causal mask in plain PyTorch (`_attend_views`), which
-    is the function of both of the reference's branches (the flat path for
-    S·H <= 128, the long prefill above it: XLA einsums on the TPU too). It
-    does not go through `decode`: the decode kernels have no backward, and
-    the cache writes in place would break autograd's version checks. The
-    encoder's attention runs on the flash kernels, backward included."""
-    feats = encode(cfg, params, mel)
-    cross_kv = compute_cross_kv(cfg, params, feats)
+def decode_teacher_forced(cfg: WhisperConfig, params: Params, cross_kv,
+                          tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder over a whole token block from position 0, each token
+    seeing the ones before it: tokens [B, S] and the fp cross K/V
+    (KVCache) → logits [B, S, n_vocab_padded] fp32. Differentiable: the
+    function of the reference's `decode` over an empty cache of S rows (its
+    flat path for S·H <= 128, the long prefill above it), in plain PyTorch
+    (`_attend_views`) with no cache and no decode kernel. `forward` and
+    training/distill.py share it."""
     dec = params["decoder"]
     B, S = tokens.shape
     n_head = cfg.n_text_head
     dh = cfg.n_text_state // n_head
-    T_a = feats.shape[1]
+    T_a = cross_kv.k.shape[2]
     x = dec["tok_emb"][tokens]
     x = x + dec["pos_emb"][:S].to(x.dtype)
     causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
@@ -724,3 +718,21 @@ def forward(cfg: WhisperConfig, params: Params, mel: torch.Tensor,
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
         x = x + _mlp(h, lp)
     return _logits(cfg, dec, x)
+
+
+def forward(cfg: WhisperConfig, params: Params, mel: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward (training): mel [B, n_mels, 3000], tokens
+    [B, S] → logits [B, S, n_vocab_padded] fp32. Differentiable.
+
+    The reference (model.py:forward) runs `decode` over an empty cache of
+    S rows with the fp cross-KV. Here the decoder half is
+    `decode_teacher_forced`: the block's own S keys under a causal mask in
+    plain PyTorch, which is the function of both of the reference's
+    branches (XLA einsums on the TPU too). It does not go through `decode`:
+    the decode kernels have no backward, and the cache writes in place
+    would break autograd's version checks. The encoder's attention runs on
+    the flash kernels, backward included."""
+    feats = encode(cfg, params, mel)
+    return decode_teacher_forced(cfg, params,
+                                 compute_cross_kv(cfg, params, feats), tokens)

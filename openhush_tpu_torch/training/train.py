@@ -59,6 +59,24 @@ class OptState:
     nu: list[torch.Tensor]      # second moments, one per leaf
 
 
+def _bias_corrections(count: int) -> tuple[float, float]:
+    """optax's 1 - b**count for Adam's two moments, in fp32."""
+    n = np.float32(count)
+    return (float(np.float32(1) - np.float32(_B1) ** n),
+            float(np.float32(1) - np.float32(_B2) ** n))
+
+
+def _adamw_leaf(p, g, mu, nu, bc1: float, bc2: float, step: float,
+                weight_decay: float) -> None:
+    """One leaf of optax's scale_by_adam → add_decayed_weights →
+    scale_by_learning_rate, added to the parameter in place; `step` is
+    -lr."""
+    mu.mul_(_B1).add_((1 - _B1) * g)
+    nu.mul_(_B2).add_((1 - _B2) * g.square())
+    u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+    p.add_((u + weight_decay * p) * step)
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """optax.chain(clip_by_global_norm(1.0), adamw(warmup_cosine_decay_
@@ -81,9 +99,7 @@ class Optimizer:
         return self.lr * 0.5 * (1 + math.cos(math.pi * c / span))
 
     def init(self, params) -> OptState:
-        ps = leaves(params)
-        return OptState(0, [torch.zeros_like(p) for p in ps],
-                        [torch.zeros_like(p) for p in ps])
+        return _init_state(params)
 
     @torch.no_grad()
     def apply(self, params, grads, state: OptState) -> None:
@@ -94,15 +110,39 @@ class Optimizer:
         keep = gnorm < _MAX_NORM
         step = -np.float32(self.learning_rate(state.count))
         state.count += 1
-        n = np.float32(state.count)
-        bc1 = float(np.float32(1) - np.float32(_B1) ** n)
-        bc2 = float(np.float32(1) - np.float32(_B2) ** n)
+        bc1, bc2 = _bias_corrections(state.count)
         for g, mu, nu, p in zip(grads, state.mu, state.nu, leaves(params)):
             g = torch.where(keep, g, g / gnorm.to(g.dtype) * _MAX_NORM)
-            mu.mul_(_B1).add_((1 - _B1) * g)
-            nu.mul_(_B2).add_((1 - _B2) * g.square())
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
-            p.add_((u + self.weight_decay * p) * float(step))
+            _adamw_leaf(p, g, mu, nu, bc1, bc2, float(step),
+                        self.weight_decay)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax.adamw(lr, weight_decay=weight_decay) at a constant rate and
+    with no clip (optax.adam at weight_decay 0): the update arithmetic of
+    Optimizer without its clip and schedule."""
+    lr: float
+    weight_decay: float = 0.0
+
+    def init(self, params) -> OptState:
+        return _init_state(params)
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: OptState) -> None:
+        """The update added to the parameters in place, leaf by leaf
+        (`leaves` order)."""
+        state.count += 1
+        bc1, bc2 = _bias_corrections(state.count)
+        step = float(-np.float32(self.lr))
+        for g, mu, nu, p in zip(grads, state.mu, state.nu, leaves(params)):
+            _adamw_leaf(p, g, mu, nu, bc1, bc2, step, self.weight_decay)
+
+
+def _init_state(params) -> OptState:
+    ps = leaves(params)
+    return OptState(0, [torch.zeros_like(p) for p in ps],
+                    [torch.zeros_like(p) for p in ps])
 
 
 def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.01,

@@ -102,6 +102,28 @@ def test_audio_front_needs_cuda_unless_cpu_is_asked():
     assert vad.VadEngine(device="cpu").device.type == "cpu"
 
 
+def test_aux_models_need_cuda_unless_cpu_is_asked():
+    """The aux models' and trainers' entry points default to CUDA as the
+    engine does."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from openhush_tpu_torch.models import diarization, m2m100, onnx2torch
+    from openhush_tpu_torch.training import speaker
+    from openhush_tpu_torch.utils.onnx_io import OnnxGraph, OnnxModel
+    model = OnnxModel(OnnxGraph(nodes=[], initializers={}, inputs=[],
+                                outputs=[]))
+    gen = torch.Generator()
+    for make in (diarization.DiarizationEngine,
+                 lambda: diarization.init_segmentation_params(gen),
+                 lambda: m2m100.init_params(m2m100.CONFIGS["test"], gen),
+                 lambda: onnx2torch.OnnxTorchModel(model),
+                 lambda: speaker.train_embedder(steps=0, n_speakers=2,
+                                                utts_per_speaker=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert onnx2torch.OnnxTorchModel(model, "cpu").device.type == "cpu"
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """On a device other than the CPU a wrapper launches its kernel or
     raises; the 'meta' device stands in for one here."""

@@ -197,3 +197,55 @@ def test_init_train_state_needs_cuda_unless_cpu_is_asked():
     assert len(ps) == len(jax.tree.leaves(
         jax.eval_shape(lambda: jax_model.init_params(
             CFG, jax.random.PRNGKey(0)))))
+
+
+def test_three_bf16_train_steps_match_jax(jparams):
+    """init_train_state's dtype: bf16 parameters (the JAX init cast to
+    bf16, carried over) and bf16 optimizer moments, three steps on one
+    batch. Losses within 1e-2 relative (bf16 keeps 8 bits: 2^-8 = 3.9e-3 a
+    rounding, and the two packages round matmul outputs, layer norms'
+    casts and the updates in different places); the parameters stay bf16
+    and within the updates' size of JAX's; the loss falls."""
+    mel, tokens, targets = _batch(24, seed=5)
+    mel16 = jnp.asarray(mel, jnp.bfloat16)      # the features in bf16
+    opt_j = jax_train.make_optimizer(lr=1e-3, warmup_steps=1, total_steps=5)
+    p = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jparams)
+    s = opt_j.init(p)
+    ref = []
+    for _ in range(3):
+        p, s, loss = jax_train.train_step(CFG, opt_j, p, s, mel16,
+                                          jnp.asarray(tokens),
+                                          jnp.asarray(targets))
+        ref.append(float(loss))
+    assert p["decoder"]["tok_emb"].dtype == jnp.bfloat16
+    opt_t = train.make_optimizer(lr=1e-3, warmup_steps=1, total_steps=5)
+    params = weights.from_numpy_params(jax.tree.map(np.asarray, jparams),
+                                       torch.bfloat16, "cpu")
+    state = opt_t.init(params)
+    ours = []
+    for _ in range(3):
+        params, state, loss = train.train_step(
+            CFG, opt_t, params, state,
+            weights.from_numpy_params({"m": np.asarray(mel16)},
+                                      torch.bfloat16, "cpu")["m"],
+            *_t(tokens, targets))
+        ours.append(float(loss))
+    assert all(t.dtype == torch.bfloat16 for t in train.leaves(params))
+    assert all(m.dtype == torch.bfloat16 for m in state.mu)
+    np.testing.assert_allclose(ours, ref, rtol=1e-2)
+    assert ours[2] < ours[0]
+    # Adam moves each element by about the step's rate (0, 1e-3, 8.5e-4):
+    # every element within twice their sum (both packages' updates, one
+    # turned against the other), two bf16 roundings of it (2^-7 |p|) and
+    # 1% of the leaf's largest value; all but 1e-4 of them within half a
+    # rate (bf16 moments can turn an update on a near-zero gradient).
+    moved = 2 * sum(opt_t.learning_rate(c) for c in range(3))
+    n_far = n_all = 0
+    for a, b in zip(train.leaves(params), jax.tree.leaves(p)):
+        b = np.asarray(b, np.float32)
+        d = np.abs(a.float().detach().numpy() - b)
+        big = 1e-2 * np.abs(b).max()
+        assert (d <= moved + big + 2.0 ** -7 * np.abs(b)).all()
+        n_far += int((d > 5e-4 + big).sum())
+        n_all += d.size
+    assert n_far <= 1e-4 * n_all

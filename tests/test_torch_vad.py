@@ -167,12 +167,32 @@ def test_create_engine_falls_back_to_energy_on_a_bad_file(tmp_path, engine,
 
 
 def test_create_engine_onnx_raises_and_is_not_swallowed(tmp_path):
-    path = tmp_path / "silero_vad.onnx"
-    path.write_bytes(b"\x08\x07")
-    with pytest.raises(NotImplementedError, match="A8"):
-        vad.create_engine(_Cfg("silero", str(path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        vad.OnnxSileroVad(str(path))
+    """A Silero .onnx builds OnnxSileroVad on the ONNX executor: a graph it
+    runs gives JAX's probability; an error while the graph runs (an op
+    outside the executor's set) reaches the caller, not the energy
+    fallback."""
+    from openhush_tpu.utils import onnx_io as jonnx_io
+    from openhush_tpu_torch.models.onnx2torch import UnsupportedOnnxOp
+    from openhush_tpu_torch.utils import onnx_io
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    path = str(tmp_path / "silero_vad.onnx")
+    onnx_io.save(chip_smoke.silero_v5_graph(np.random.default_rng(3)), path)
+    ours = vad.create_engine(_Cfg("silero", path), device="cpu")
+    ref = jvad.create_engine(_Cfg("silero", path))
+    assert isinstance(ours, vad.OnnxSileroVad)
+    chunk = _stream(1, 4)[0]
+    assert ours.process(chunk).probability == pytest.approx(
+        ref.process(chunk).probability, abs=1e-5)
+    bad = jonnx_io.OnnxModel(jonnx_io.OnnxGraph(
+        nodes=[jonnx_io.OnnxNode("StringNormalizer", ["input"], ["output"])],
+        initializers={}, inputs=[jonnx_io.OnnxValueInfo("input", 1, (1, 512))],
+        outputs=[jonnx_io.OnnxValueInfo("output")]))
+    jonnx_io.save(bad, path)
+    engine = vad.create_engine(_Cfg("silero", path), device="cpu")
+    assert isinstance(engine, vad.OnnxSileroVad)
+    with pytest.raises(UnsupportedOnnxOp, match="StringNormalizer"):
+        engine.process(chunk)
 
 
 @pytest.mark.parametrize("pad_mode", jsilero.PAD_MODES)

@@ -109,6 +109,28 @@ def test_default_params_come_from_a_generator():
     assert tuple(d1.cls_params["w1"].shape) == (ww.CLS_WINDOW * ww.EMB_DIM, 128)
 
 
-def test_from_onnx_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        ww.WakeWordDetector.from_onnx("emb.onnx", "cls.onnx")
+def test_from_onnx_raises(tmp_path):
+    """from_onnx raises on a missing graph file, and on two written graphs
+    (openWakeWord's I/O layouts) scores as JAX's from_onnx does."""
+    import sys
+    from pathlib import Path
+
+    from openhush_tpu_torch.utils import onnx_io
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    with pytest.raises(FileNotFoundError):
+        ww.WakeWordDetector.from_onnx(str(tmp_path / "emb.onnx"),
+                                      str(tmp_path / "cls.onnx"),
+                                      device="cpu")
+    emb, cls_m = chip_smoke.wakeword_graphs(np.random.default_rng(5))
+    ep, cp = str(tmp_path / "emb.onnx"), str(tmp_path / "cls.onnx")
+    onnx_io.save(emb, ep)
+    onnx_io.save(cls_m, cp)
+    ours = ww.WakeWordDetector.from_onnx(ep, cp, device="cpu")
+    ref = jww.WakeWordDetector.from_onnx(ep, cp)
+    got = [(ours.process(c), ref.process(c)) for c in _chunks(25, 6)]
+    assert got[-1][0] is not None
+    for a, r in got:
+        assert (a is None) == (r is None)
+        if a is not None:
+            assert a == pytest.approx(r, abs=1e-5)
