@@ -48,7 +48,9 @@ Phases, each printing its own lines and its seconds:
      envelope and the limiter's gain on one 30 s window and on a 5 s
      chunk, the Wiener denoiser's noise floor on [3000, 22], each the plain
      version's bits and its own over two launches, timed beside two bounds
-     (bytes at 3.35 TB/s; its dependent chain at 1.98 GHz);
+     (bytes at 3.35 TB/s; its dependent chain at 1.98 GHz); K1, K2 (bf16),
+     K4 and K5 at the daemon's shapes (audio_ctx 256 and 512: 2T mel
+     frames, T keys, 8 slots), timed beside their bounds and SDPA;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -75,15 +77,15 @@ Phases, each printing its own lines and its seconds:
      kernel's launch count read over exactly that run, then a few steps at
      8 busy slots under a device-only trace;
   4c-audio. the daemon's audio front on the same weights: build_preprocess
-     (the default AudioConfig, and every stage on) over two consecutive 30 s
-     windows, card against CPU (plain versions); make_server with the
-     preprocess (every stage on) on 4 requests of 5-30 s, the DSP kernels
-     counted once a window, no "preprocess failed" warning, tokens equal to
-     a plain server's fed the preprocessed audio; the VAD engines (energy,
-     gru, Silero) into VadState and the wake-word detector on 45 s of
-     speech-like audio with silences, card against CPU; host wall and
-     device time per VAD chunk, wake-word chunk, 30 s preprocess and
-     rnn_gains on 500 frames;
+     (the default AudioConfig on one 30 s window, and every stage on over
+     two consecutive 15 s ones), card against CPU (plain versions);
+     make_server with the preprocess (every stage on) on 4 requests of
+     5-30 s, the DSP kernels counted once a window, no "preprocess failed"
+     warning, tokens equal to a plain server's fed the preprocessed audio;
+     the VAD engines (energy, gru, Silero) into VadState and the wake-word
+     detector on 45 s of speech-like audio with silences, card against
+     CPU; host wall and device time per VAD chunk, wake-word chunk, 30 s
+     preprocess and rnn_gains on 500 frames;
   4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
      quantize_encoder) through phases 4 and 4b's runs, the encoder's
      device time W8A8 against bf16 at B=1 and B=8 (and torch._int_mm on
@@ -140,17 +142,31 @@ Phases, each printing its own lines and its seconds:
      greedy_translate of 2 rows of 32 source tokens to 256 tokens, the
      first row's first 16 tokens against the CPU's, wall per token, host
      wall and device busy per decode step, peak memory;
+  10. the dictation daemon: `_build_daemon()` from a config file with
+     model = "large-v3" (random weights, audio_ctx 512, warmup), driven over
+     its IPC socket on a thread with a real-time FileSource: six
+     push-to-talk cycles of 3-8 s and 30 s of continuous dictation, under a
+     device-only trace (per window: submit-to-text latency, tokens, steps;
+     stop-to-final p50 and p90; busy share), each window's text held to a
+     plain EngineServer's, preprocess_failures 0, then unload_model
+     (memory back) and load_model (timed); then `python -m
+     openhush_tpu_torch.cli start --no-tray` with model = "large-v3"
+     (random weights, no warmup) driven by `status`, `recording
+     start|stop` (one window transcribed) and `stop`;
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row, from 4f's one-shot speculative engine for the two verify
 rows, from 4c-audio's preprocess server for the three DSP rows; K1-K5 also
-carry phase 4g's launches as distill_launches) and, last, the
+carry phase 4g's launches as distill_launches, K1-K5 and the limiter
+phase 10's as daemon_launches, and K1, K2, K4 and K5 their daemon-shape
+measurements as ctx256_* and ctx512_*) and, last, the
 `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
 it exits 1 at once.
 """
 
+import contextlib
 import functools
 import itertools
 import json
@@ -159,6 +175,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -225,13 +242,14 @@ def bound_ms(n_bytes: float, n_flops: float, kind: str):
 
 def device_time(prof):
     """Device busy time (us) of a device-only torch.profiler trace, and its
-    time by kernel name."""
+    time by kernel name, from the trace's raw events (the profiler's event
+    tree takes minutes to build for a trace of a minute of serving)."""
     busy, by_name = 0.0, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
             busy += us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + us
     return busy, by_name
 
 
@@ -798,6 +816,139 @@ def phase_decode_attention(da, quantize):
                 f"(tolerance 2e-2)")
             check(e <= 2e-2, f"decode_cross_attend {what} vs plain")
     return rows
+
+
+# The daemon's encoder contexts: audio_ctx for 2.5 s and 5 s chunks
+# (runtime/daemon.audio_ctx_for: 256 is its least, 512 the random-init
+# daemon's), each over 2 x audio_ctx mel frames.
+DAEMON_CTXS = (256, 512)
+
+
+def phase_daemon_shapes(frontend, flash_attention, da, quantize, mel):
+    """K1, K2 (bf16), K4 and K5 at the daemon's shapes, large-v3's widths:
+    for audio_ctx T in DAEMON_CTXS, K1 on one window of 2T frames (128
+    mels), K2 at B=1 over T keys (the prep of one window), K4 on the bf16
+    self-attention at 8 slots (causal, per-row lengths up to T) and K5 on
+    the int8 cross-KV of T rows at 8 slots: each against its plain version
+    (phase 2's tolerances), timed beside its bound and, for K2 and K4,
+    SDPA. Returns {kernel name: {T: measurements}}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    B, H, D, n_mels = SERVE_SLOTS, 20, 64, 128
+    HD = H * D
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads = lambda x: x.view(x.shape[0], -1, H, D).transpose(1, 2)
+    out = {name: {} for name in ("log_mel", "flash_attention",
+                                 "decode_attention_direct",
+                                 "decode_attention_pipelined")}
+    nnz = int(np.count_nonzero(mel.mel_filter_bank(n_mels)))
+    n_bins = mel.N_FFT // 2 + 1
+    for T in DAEMON_CTXS:
+        n_frames = 2 * T
+        audio = torch.from_numpy(speechlike(n_frames * mel.HOP_LENGTH / 16000,
+                                            SEED + T))[None].to(dev)
+        ours = frontend.log_mel(audio, n_mels, n_frames)
+        plain = mel.log_mel_spectrogram(audio, n_mels, n_frames)
+        err = (ours - plain).abs().max().item()
+        log(f"K1 log_mel at {n_frames} frames (audio_ctx {T}): max_abs_err "
+            f"{err:.3e} (tolerance 1e-3)")
+        check(err <= 1e-3 and ours.shape == (1, n_mels, n_frames),
+              f"K1 log_mel vs plain at {n_frames} frames")
+        b, by = bound_ms(4 * (audio.numel() + 2 * mel.N_FFT * n_bins + nnz
+                              + n_frames * n_mels),
+                         2 * (2 * n_frames * n_bins * (n_bins // 2 + 1))
+                         + 2 * n_frames * nnz, "fp32")
+        out["log_mel"][T] = dict(
+            max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
+            ms=time_ms(lambda: frontend.log_mel_energies(audio, n_mels,
+                                                         n_frames)),
+            plain_ms=time_ms(lambda: mel.log_mel_energies(audio, n_mels,
+                                                          n_frames)))
+
+        qkv = [rnd(1, T, HD).to(torch.bfloat16).view(1, T, H, D)
+               .transpose(1, 2) for _ in range(3)]
+        ours = flash_attention.flash_attention(*qkv)
+        plain = flash_attention.attend(*qkv)
+        err = (ours.float() - plain.float()).abs().max().item()
+        log(f"K2 flash_attention (bf16, B=1, T={T}): max_abs_err {err:.3e} "
+            f"(tolerance 1e-2)")
+        check(err <= 1e-2 and bool(torch.isfinite(ours).all()),
+              f"K2 flash_attention vs plain at T={T}")
+        b, by = bound_ms(4 * H * T * D * 2, 4 * H * T * T * D, "bf16")
+        out["flash_attention"][T] = dict(
+            max_abs_err=err, bound_ms=b, bound_by=by,
+            ms=time_ms(lambda: flash_attention.flash_attention(*qkv)),
+            plain_ms=time_ms(lambda: flash_attention.attend(*qkv)),
+            library_ms=time_ms(lambda: sdpa(*qkv)))
+
+        # K4: the self-attention step over T rows, bf16, causal, per-row
+        # lengths; one cache copy per decoder layer, each launch on the next.
+        q = rnd(B, 1, HD).to(torch.bfloat16)
+        k, v = (rnd(B, T, HD).to(torch.bfloat16) for _ in range(2))
+        lengths = (torch.randint(0, T, (B,), generator=g, device=dev)
+                   + 1).to(torch.int32)
+        args = (q, k, v, lengths, H)
+        o4 = da.attend_decode(*args, causal=True)
+        plain = da.attend_decode_plain(*args, causal=True)
+        err = (o4.float() - plain.float()).abs().max().item()
+        log(f"K4 attend_decode (bf16 self, B={B}, T={T}, causal, per-row "
+            f"lengths): max_abs_err {err:.3e} (tolerance 1e-2)")
+        check(err <= 1e-2, f"K4 bf16 self-attention vs plain at T={T}")
+        n_keys = int(lengths.sum())
+        b, by = bound_ms(2 * n_keys * HD * 2 + 2 * B * HD * 2 + 4 * B,
+                         4 * n_keys * HD, "fp32")
+        mask = (torch.arange(T, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        layers = [(k.clone(), v.clone()) for _ in range(N_LAYER)]
+        on_layers = lambda fn: rotate([
+            functools.partial(fn, q, kl, vl, lengths, H, causal=True)
+            for kl, vl in layers])
+        out["decode_attention_direct"][T] = dict(
+            max_abs_err=err, bound_ms=b, bound_by=by,
+            ms=time_ms(on_layers(da.attend_decode), iters=2 * N_LAYER),
+            plain_ms=time_ms(on_layers(da.attend_decode_plain)),
+            library_ms=time_ms(rotate([
+                functools.partial(sdpa, heads(q), heads(kl), heads(vl),
+                                  attn_mask=mask) for kl, vl in layers]),
+                iters=2 * N_LAYER))
+        del layers
+
+        # K5: the cross-attention over the int8 cross-KV of T rows.
+        (k8, ks), (v8, vs) = (quantize.quantize_heads_plain(
+            rnd(B, T, HD).to(torch.bfloat16), H) for _ in range(2))
+        o5, p5 = da.attend_decode_pipelined(q, k8, v8, None, H, ks=ks, vs=vs,
+                                            return_probs=True)
+        plain, p_plain = da.attend_decode_plain(q, k8, v8, None, H, ks=ks,
+                                                vs=vs, return_probs=True)
+        err = (o5.float() - plain.float()).abs().max().item()
+        dp = (p5 - p_plain).abs()
+        share = dp.ne(0).sum().item() / (H * B * T)
+        log(f"K5 attend_decode_pipelined (int8 cross, B={B}, T={T}): "
+            f"max_abs_err {err:.3e} (tolerance 1e-2); int8 prob levels max "
+            f"diff {dp.max().item():.0f} on {share:.2e} of keys (tolerance "
+            f"1 level on <= 1e-3)")
+        check(err <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3,
+              f"K5 int8 cross-attention vs plain at T={T}")
+        b, by = bound_ms(2 * B * T * HD + 2 * B * T * H * 4 + 2 * B * HD * 2,
+                         4 * B * T * HD, "fp32")
+        layers = [tuple(x.clone() for x in (k8, v8, ks, vs))
+                  for _ in range(N_LAYER)]
+        on_layers = lambda fn: rotate([
+            functools.partial(fn, q, kl, vl, None, H, ks=ksl, vs=vsl)
+            for kl, vl, ksl, vsl in layers])
+        out["decode_attention_pipelined"][T] = dict(
+            max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
+            ms=time_ms(on_layers(da.attend_decode_pipelined),
+                       iters=2 * N_LAYER),
+            plain_ms=time_ms(on_layers(da.attend_decode_plain)))
+        del layers
+    for name, by_ctx in out.items():
+        for T, r in by_ctx.items():
+            log(f"  {name} at audio_ctx {T}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    return out
 
 
 def phase_int8_self_cache(da, quantize):
@@ -2282,6 +2433,8 @@ AUDIO_FRONT_SECS = (5.0, 12.0, 20.0, 30.0)   # the server run's requests
 # exp, log10 and pow; the recurrences are the same operations.
 PRE_TOL = 1e-4
 GATE_TOL = 1e-5
+# The stateful chain's card-vs-CPU windows (every stage on), in seconds.
+PRE_STATE_SECS = 15.0
 
 
 def gated_speech(secs: float = 45.0, seed: int = SEED + 70) -> np.ndarray:
@@ -2331,15 +2484,15 @@ def threshold_with_margin(probs):
 def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
                       wakeword, counters):
     """The daemon's audio front on the card: build_preprocess (default
-    config and every stage on) over two consecutive 30 s windows against
-    the same calls on the CPU (plain versions); a server with the
-    preprocess (every stage on) on 4 requests of 5-30 s, its DSP launches
-    counted, no "preprocess failed" warning, its tokens equal to a plain
-    server's fed the preprocessed audio; the VAD engines (energy, gru,
-    Silero) into VadState and the wake-word detector on 45 s of speech-like
-    audio with silences, card against CPU; host wall and device time per
-    VAD chunk, wake-word chunk, 30 s preprocess, and rnn_gains on 500
-    frames. Returns the DSP kernels' launches in the server run."""
+    config on one 30 s window, every stage on over two consecutive 15 s
+    ones) against the same calls on the CPU (plain versions); a server
+    with the preprocess (every stage on) on 4 requests of 5-30 s, its DSP
+    launches counted, no "preprocess failed" warning, its tokens equal to
+    a plain server's fed the preprocessed audio; the VAD engines (energy,
+    gru, Silero) into VadState and the wake-word detector on 45 s of
+    speech-like audio with silences, card against CPU; host wall and device
+    time per VAD chunk, wake-word chunk, 30 s preprocess, and rnn_gains on
+    500 frames. Returns the DSP kernels' launches in the server run."""
     import logging
     import types
     from openhush_tpu_torch.runtime import server as server_mod
@@ -2350,15 +2503,22 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
     for label, cfg in cfgs.items():
         card = daemon.build_preprocess(cfg, device=dev)
         cpu = daemon.build_preprocess(cfg, device="cpu")
-        for i, w in enumerate(windows):
+        # The default chain carries no state: one 30 s window is enough.
+        # Every stage on carries denoise's state: two consecutive windows,
+        # cut to their first PRE_STATE_SECS (depth cuts: the CPU's plain
+        # loops take up to ~0.75 s a second of audio).
+        for i, w in enumerate(
+                [w[:int(16000 * PRE_STATE_SECS)] for w in windows]
+                if cfg.noise_reduction_enabled else windows[:1]):
             y = card(w)
             t0 = time.perf_counter()
             y_cpu = cpu(w)
             cpu_s = time.perf_counter() - t0
             err = float(np.abs(y - y_cpu).max())
-            log(f"  preprocess ({label}), 30 s window {i + 1} of 2 (state "
-                f"carried): card vs CPU max_abs_err {err:.3e} (tolerance "
-                f"{PRE_TOL}); peak {np.abs(y).max():.4f}; the CPU's plain "
+            log(f"  preprocess ({label}), {len(w) / 16000:.0f} s window "
+                f"{i + 1} (state carried): card vs CPU max_abs_err "
+                f"{err:.3e} (tolerance {PRE_TOL}); peak "
+                f"{np.abs(y).max():.4f}; the CPU's plain "
                 f"versions took {cpu_s:.1f} s of host wall")
             check(err <= PRE_TOL and y.shape == w.shape
                   and bool(np.isfinite(y).all()),
@@ -2407,6 +2567,7 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
         launches = {fn.__name__: fn.launches for fn in counters + list(dsp_fns)}
     finally:
         server_log.removeHandler(capture)
+    failures = srv.preprocess_failures
     del srv
     n = len(requests)
     log(f"  server with the preprocess (every stage on): {n} windows of "
@@ -2419,6 +2580,8 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
     check(not any("preprocess failed" in m for m in capture.messages),
           "no 'preprocess failed' warning: the server did not fall back to "
           "the raw audio")
+    check(failures == 0, f"preprocess_failures == 0 (phase 4c-audio): "
+          f"{failures}")
     check(launches["log_mel_energies"] >= 1 and launches["flash_attention"] >= 32
           and launches["quantize_heads_kv"] >= 32
           and launches["attend_decode"] > 0
@@ -3643,6 +3806,475 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
         log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
 
 
+# Phase 10, the daemon: push-to-talk cycles (seconds of speech each), the
+# silence around them, and the continuous session over gated speech.
+DAEMON_PTT_SECS = (3.0, 4.0, 5.0, 6.0, 7.0, 8.0)
+# Near silence between the cycles: the drive waits for a cycle's windows
+# before the next press, since the daemon (as the reference's) drains only
+# its current session (ROADMAP C, F2).
+DAEMON_GAP_SECS = 1.5
+DAEMON_CONT_SECS = 30.0
+DAEMON_MODEL = "large-v3"        # run 1, in process, at full width
+DAEMON_ENTRY_MODEL = "large-v3"  # run 2, through the entry point
+DAEMON_START_ARGS = ("--no-tray",)
+
+
+def _quiet(secs: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (1e-3 * rng.standard_normal(int(16000 * secs))).astype(np.float32)
+
+
+def _words_decode(self, ids):
+    """A word a token: the built-in vocabulary (no vocab files here)
+    decodes only byte tokens, which random weights seldom emit, so the
+    daemon's text pipeline would see empty texts."""
+    return " ".join(f"w{int(t)}" for t in ids)
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """os.environ with `values` set (None: unset), restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wait(cond, timeout: float, what: str, poll: float = 0.01) -> None:
+    t_end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < t_end, f"{what} within {timeout:.0f} s")
+        time.sleep(poll)
+
+
+def phase_daemon(daemon_mod, ipc, server_mod, tokenizer_mod, capture, cli,
+                 counters, tmp):
+    """The dictation daemon on the card. Run 1, in process, at large-v3's
+    width: a config file with model = "large-v3" in a temp XDG_CONFIG_HOME,
+    a temp XDG_RUNTIME_DIR, OPENHUSH_ALLOW_RANDOM_INIT=1; `_build_daemon()`
+    (what `start` runs: the engine, the preprocess, the server at
+    audio_ctx 512 and its warmup), build and warmup timed apart; its source
+    swapped for a real-time FileSource; `Daemon.run` on a thread, driven
+    over IPC through six push-to-talk cycles of 3-8 s and one continuous
+    session over 30 s of gated speech, under a device-only trace; then
+    unload_model (memory reserved before and after) and load_model (timed).
+    The instrumentation (wrappers on the server instance) is installed
+    after the warmup, so it sees only the drive's windows. Printed: each
+    window's submit-to-text latency, tokens and steps; the
+    stop-to-final p50 and p90; the device busy share. Checked: each
+    window's text and tokens equal a plain EngineServer's on the same
+    weights, audio_ctx and preprocess (the windows replayed in the prep
+    batches the daemon made), the daemon's outputs equal the tracker's
+    replay of those texts, preprocess_failures 0, K1-K5 and the limiter
+    launched, the unload gave back at least the weights' bytes. Texts are
+    a word a token (_words_decode), on the daemon and the plain server
+    alike. Run 2, through the entry point: `python -m openhush_tpu_torch.cli
+    start --no-tray` with model = "large-v3" (random weights, no warmup),
+    driven by the CLI's `status`, `recording start`, `recording stop` (its
+    window transcribed before `stop`) and `stop`. `counters`: K1-K5's
+    wrappers and the limiter's; returns their launches in run 1."""
+    from torch.profiler import ProfilerActivity, profile
+    EngineServer = server_mod.EngineServer
+    run_dir = os.path.join(tmp, "run")
+    cfg_home = os.path.join(tmp, "config")
+    os.makedirs(os.path.join(cfg_home, "openhush"))
+    os.makedirs(run_dir)
+    with open(os.path.join(cfg_home, "openhush", "config.toml"), "w") as f:
+        f.write(f'[transcription]\nmodel = "{DAEMON_MODEL}"\n')
+    warmups = []
+    warmup = EngineServer.warmup
+
+    def timed_warmup(self):
+        t0 = time.monotonic()
+        warmup(self)
+        torch.cuda.synchronize()
+        warmups.append(time.monotonic() - t0)
+
+    decode = tokenizer_mod.WhisperTokenizer.decode
+    EngineServer.warmup = timed_warmup
+    tokenizer_mod.WhisperTokenizer.decode = _words_decode
+    try:
+        with _env(XDG_CONFIG_HOME=cfg_home, XDG_RUNTIME_DIR=run_dir,
+                  OPENHUSH_ALLOW_RANDOM_INIT="1", OPENHUSH_CONFIG=None,
+                  OPENHUSH_MODEL_DIR=os.path.join(tmp, "models"),
+                  OPENHUSH_DRAFT_MODEL=None):
+            launches = _daemon_in_process(daemon_mod, ipc, server_mod,
+                                          capture, counters, warmups,
+                                          run_dir, ProfilerActivity, profile)
+    finally:
+        EngineServer.warmup = warmup
+        tokenizer_mod.WhisperTokenizer.decode = decode
+    _daemon_entry_point(cli, tmp)
+    return launches
+
+
+def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
+                       warmups, run_dir, ProfilerActivity, profile):
+    EngineServer = server_mod.EngineServer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # earlier phases' cache out of the reading
+    mem0 = torch.cuda.memory_reserved()
+    t0 = time.monotonic()
+    d = daemon_mod._build_daemon()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    srv = d.server
+    log(f"  _build_daemon ({DAEMON_MODEL}, random weights, bf16): "
+        f"{build_s:.2f} s, "
+        f"of which the server's warmup {sum(warmups):.2f} s; audio_ctx "
+        f"{srv.audio_ctx}, chunk interval {d.chunk_interval} s, "
+        f"{srv.n_slots} slots, memory reserved {mem0 / 2**30:.2f} -> "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    check(srv.audio_ctx == 512 and d.chunk_interval == 5.0
+          and d.device.type == "cuda" and srv.preprocess is not None,
+          "the daemon's server: audio_ctx 512, 5 s chunks, a preprocess")
+
+    # The timeline: push-to-talk cycles with silence around them, then the
+    # continuous session.
+    parts, ptt, pos = [_quiet(1.0, SEED + 80)], [], 16000
+    for i, secs in enumerate(DAEMON_PTT_SECS):
+        speech = speechlike(secs, SEED + 81 + i)
+        ptt.append((pos, pos + len(speech)))
+        parts += [speech, _quiet(DAEMON_GAP_SECS, SEED + 90 + i)]
+        pos += len(speech) + int(16000 * DAEMON_GAP_SECS)
+    cont = gated_speech(DAEMON_CONT_SECS)
+    cont_span = (pos, pos + len(cont))
+    parts += [cont, _quiet(2.0, SEED + 99)]
+    d.source = capture.FileSource(np.concatenate(parts), realtime=True)
+
+    # Instrumentation on the daemon's server instance.
+    submitted, polled, outputs, groups = {}, {}, {}, []
+    submit, poll, prepare = srv.submit_window, srv.poll, srv._prepare_many
+    step, steps_wall, prep_wall = srv._step_state, [], []
+
+    def on_submit(sid, audio, window_id=0, **kw):
+        submitted[window_id] = (time.monotonic(), np.array(audio), kw)
+        return submit(sid, audio, window_id=window_id, **kw)
+
+    def on_poll(sid, timeout=None):
+        r = poll(sid, timeout)
+        if r is not None:
+            polled[r.window_id] = (time.monotonic(), r)
+        return r
+
+    def on_prepare(jobs):
+        groups.append([j.window_id for j in jobs])
+        t0 = time.perf_counter()
+        prepare(jobs)
+        prep_wall.append(time.perf_counter() - t0)
+
+    def on_step(deep=False):
+        t0 = time.perf_counter()
+        step(deep=deep)
+        steps_wall.append((time.perf_counter() - t0, srv.inner_steps
+                           * (srv.deep_factor if deep else 1)))
+
+    srv.submit_window, srv.poll, srv._prepare_many, srv._step_state = (
+        on_submit, on_poll, on_prepare, on_step)
+    process = d._process_and_output
+
+    def on_output(ready):
+        wid = d._pack(ready.sequence_id, ready.chunk_id, ready.is_final)
+        outputs.setdefault(wid, []).append((time.monotonic(), ready.text))
+        return process(ready)
+
+    d._process_and_output = on_output
+    emitted = []
+    d._handler, d.output = None, emitted.append
+
+    fns = counters
+    for fn in fns:
+        fn.launches = 0
+    runner = threading.Thread(target=d.run, kwargs={"enable_tray": False},
+                              daemon=True)
+    client = ipc.IpcClient(timeout=300.0)
+    sock = os.path.join(run_dir, "openhush.sock")
+    pid_file = os.path.join(run_dir, "openhush.pid")
+    stops = {}
+    t_drive = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.start()
+        _wait(lambda: os.path.exists(sock), 30, "the daemon's socket")
+        check(int(open(pid_file).read()) == os.getpid(),
+              "the PID file names this process")
+        at = lambda n: _wait(lambda: d.ring.current_position() >= n, 60,
+                             f"audio position {n}")
+        done = lambda: _wait(
+            lambda: (client.send("queue_depth")["queue_depth"] == 0
+                     and all(w in polled for w in submitted)), 120,
+            "every window transcribed", poll=0.05)
+        late = []
+        for start, end in ptt:
+            done()
+            late.append(max(0, d.ring.current_position() - start) / 16000)
+            at(start)
+            check(client.send("start_recording") == {"ok": True},
+                  "IPC start_recording")
+            seq = d._sequence
+            at(end)
+            stops[seq] = time.monotonic()
+            check(client.send("stop_recording") == {"ok": True},
+                  "IPC stop_recording")
+        done()
+        late.append(max(0, d.ring.current_position() - cont_span[0]) / 16000)
+        at(cont_span[0])
+        check(client.send("start_continuous") == {"ok": True},
+              "IPC start_continuous")
+        cont_seq = d._sequence
+        at(cont_span[1])
+        check(client.send("stop_recording") == {"ok": True},
+              "IPC stop_recording (continuous)")
+        done()
+        time.sleep(0.1)          # the drain that follows the last poll
+        torch.cuda.synchronize()
+        drive_s = time.monotonic() - t_drive
+    parse_s = time.monotonic() - t_drive - drive_s
+    t0 = time.monotonic()
+    busy_us, _ = device_time(prof)
+    trace_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in fns}
+    del prof
+
+    windows = sorted(submitted)
+    kinds = {}
+    for w in windows:
+        seq, chunk, final = d._unpack(w)
+        kinds[w] = ("vad" if seq == cont_seq else
+                    "final" if final else "partial")
+    log(f"  drive: {len(DAEMON_PTT_SECS)} push-to-talk cycles of "
+        f"{DAEMON_PTT_SECS} s and {DAEMON_CONT_SECS} s of continuous "
+        f"dictation in {drive_s:.2f} s wall; {len(windows)} windows "
+        f"({sum(k == 'partial' for k in kinds.values())} partial, "
+        f"{sum(k == 'final' for k in kinds.values())} final, "
+        f"{sum(k == 'vad' for k in kinds.values())} VAD segments); prep "
+        f"batches {[len(g) for g in groups]}; presses "
+        f"late by {', '.join(f'{x:.2f}' for x in late)} s (the previous "
+        f"windows still in flight at the planned press)")
+    lat = {}
+    for w in windows:
+        t_sub, audio, _ = submitted[w]
+        t_poll, r = polled[w]
+        t_out = outputs[w][0][0] if w in outputs else None
+        lat[w] = (t_out if t_out is not None else t_poll) - t_sub
+        log(f"    window {kinds[w]:7s} seq {w >> 32} chunk "
+            f"{(w & 0xFFFFFFFF) >> 1}: {len(audio) / 16000:5.2f} s of audio, "
+            f"submit -> {'text' if t_out is not None else 'result (no text)'}"
+            f" {lat[w] * 1e3:8.1f} ms, {len(r.tokens)} tokens, {r.steps} "
+            f"steps, {lat[w] * 1e3 / max(r.steps, 1):.1f} ms a step, "
+            f"server latency {r.latency * 1e3:.1f} ms, language {r.language}")
+    finals = [w for w in windows if kinds[w] == "final"]
+    stop_final = [(outputs[w][0][0] if w in outputs else polled[w][0])
+                  - stops[w >> 32] for w in finals]
+    steps_final = [polled[w][1].steps for w in finals]
+    p50, p90 = np.percentile(stop_final, 50), np.percentile(stop_final, 90)
+    first = [lat[w] for w in windows if kinds[w] == "partial"]
+    log(f"  stop -> final text over {len(finals)} cycles: p50 "
+        f"{p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms (median "
+        f"{np.median(steps_final):.0f} decode steps; "
+        f"{p50 * 1e3 / max(np.median(steps_final), 1):.1f} ms a step at "
+        f"p50); first partial submit -> text "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in first)} ms")
+    log(f"  device busy {busy_us / 1e3:.1f} ms of {drive_s * 1e3:.1f} ms "
+        f"wall: busy share {busy_us / 1e6 / drive_s:.4f} (the profiler took "
+        f"{parse_s:.1f} s to close, the trace {trace_s:.1f} s to read)")
+    n_inner = sum(n for _, n in steps_wall)
+    log(f"  the server inside the daemon: {len(steps_wall)} step dispatches "
+        f"({n_inner} decode steps over 8 slots), "
+        f"{sum(w for w, _ in steps_wall) * 1e3 / max(n_inner, 1):.1f} ms of "
+        f"host wall a decode step; {len(prep_wall)} prep batches "
+        f"(preprocess, mel, encoder, cross-KV, language), "
+        f"{np.median(prep_wall) * 1e3:.1f} ms each (median)")
+    log(f"  launches over the drive: {launches}; preprocess_failures "
+        f"{srv.preprocess_failures}; outputs {len(emitted)}")
+    check(busy_us > 0, "the trace saw device work")
+    check(srv.preprocess_failures == 0
+          and client.send("status")["preprocess_failures"] == 0,
+          "preprocess_failures == 0 (phase 10), on the server and in the "
+          "IPC status reply")
+    check(all(n > 0 for n in launches.values()),
+          "K1-K5 and the limiter launched during the phase")
+    check(len(finals) == len(DAEMON_PTT_SECS)
+          and sum(k == "vad" for k in kinds.values()) >= 2,
+          "a final window a cycle and VAD segments in the continuous run")
+
+    # The daemon's outputs are the tracker's replay of its window texts.
+    from openhush_tpu_torch.runtime.tracker import (ChunkResult,
+                                                    TranscriptionTracker)
+    tracker = TranscriptionTracker(streaming=True)
+    replay, last_seq = [], None
+    for w in sorted(polled, key=lambda w: polled[w][0]):
+        seq, chunk, final = d._unpack(w)
+        if seq != last_seq:
+            tracker.reset_dedup()
+            last_seq = seq
+        tracker.add_result(ChunkResult(
+            text=polled[w][1].text.strip(), sequence_id=seq, chunk_id=chunk,
+            is_final=final, duration_secs=0.0))
+        replay += [r.text for r in tracker.take_ready() if r.text]
+    check(emitted == replay, "the daemon's outputs == the tracker's replay "
+          "of its windows' texts")
+
+    # Unload, then load, over IPC.
+    weights_bytes = server_mod._nbytes(srv.params)
+    checksum = float(srv.params["decoder"]["tok_emb"].float().sum())
+    results = {w: (r.tokens, r.text) for w, (_, r) in polled.items()}
+    # Drop every reference to the server (the class's methods back on the
+    # instance first: the daemon's loop still polls it) so that the unload
+    # can free it.
+    del srv.submit_window, srv.poll, srv._prepare_many, srv._step_state
+    del srv, submit, poll, prepare, step, on_submit, on_poll, on_prepare
+    del on_step, polled
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    before_a = torch.cuda.memory_allocated()
+    check(client.send("unload_model") == {"ok": True}, "IPC unload_model")
+    after = torch.cuda.memory_reserved()
+    after_a = torch.cuda.memory_allocated()
+    check(not client.send("status")["model_loaded"], "unloaded")
+    t0 = time.monotonic()
+    check(client.send("load_model") == {"ok": True}, "IPC load_model")
+    reload_s = time.monotonic() - t0
+    st = client.send("status")
+    log(f"  unload: memory reserved {before / 2**30:.3f} -> "
+        f"{after / 2**30:.3f} GiB, allocated {before_a / 2**30:.3f} -> "
+        f"{after_a / 2**30:.3f} GiB (weights {weights_bytes / 2**30:.3f} "
+        f"GiB; reserved at the build's start {mem0 / 2**30:.3f} GiB);"
+        f" reload {reload_s:.2f} s (warmup {warmups[-1]:.2f} s of it); "
+        f"status {st}")
+    check(before - after >= weights_bytes,
+          "the unload gave back at least the weights' bytes")
+    check(st["model_loaded"] and st["state"] == "idle", "reloaded")
+    srv = d.server
+    check(float(srv.params["decoder"]["tok_emb"].float().sum()) == checksum,
+          "the reload built the same weights (seed 0)")
+
+    # A plain server on the same weights, audio_ctx and preprocess, fed
+    # the same windows in the prep batches the daemon made. A batch is
+    # submitted once the one before it has been prepared (run_once
+    # prepares whatever is pending as one batch), so that the batches
+    # decode side by side, as they did in the daemon.
+    plain = EngineServer(srv.cfg, srv.params, tokenizer=srv.tokenizer,
+                         dtype=torch.bfloat16, audio_ctx=srv.audio_ctx,
+                         max_decode_len=256, preprocess=srv.preprocess,
+                         temperatures=(0.0,), logprob_threshold=-1e9,
+                         no_speech_threshold=2.0)
+    sids, got, waiting, t0 = {}, {}, list(groups), time.monotonic()
+    for _ in range(4000):
+        if waiting and plain._pending.empty():
+            for w in waiting.pop(0):
+                sids[w] = plain.open_session()
+                _, audio, kw = submitted[w]
+                plain.submit_window(sids[w], audio, window_id=w, **kw)
+        plain.run_once()
+        for w, sid in sids.items():
+            r = plain.poll(sid)
+            if r is not None:
+                got[w] = (r.tokens, r.text)
+        if not waiting and len(got) == len(results):
+            break
+    same = 0
+    for w in windows:
+        ok = got.get(w) == results[w]
+        same += ok
+        if not ok:
+            log(f"    window {w:#x}: daemon {results[w][0][:24]} vs "
+                f"plain {got.get(w, ([], ''))[0][:24]}")
+    log(f"  plain server on the same windows: {same} of {len(results)} "
+        f"windows with equal tokens and text ({time.monotonic() - t0:.1f} s)")
+    check(same == len(results), "the daemon's window texts == a plain "
+          "server's on the same windows")
+    del plain, srv
+    check(client.send("stop") == {"ok": True}, "IPC stop")
+    runner.join(timeout=60)
+    check(not runner.is_alive() and not os.path.exists(pid_file),
+          "the daemon stopped and removed its PID file")
+    return launches
+
+
+def _daemon_entry_point(cli, tmp):
+    """`python -m openhush_tpu_torch.cli start --no-tray` (model large-v3,
+    random weights, warmup_on_load off) in a subprocess, driven by the
+    CLI's status, recording start, recording stop and stop; between the
+    last two, status until the queue is empty: the recording's window was
+    transcribed at full width."""
+    import io
+    run_dir = os.path.join(tmp, "run2")
+    os.makedirs(run_dir)
+    cfg = os.path.join(tmp, "entry.toml")
+    with open(cfg, "w") as f:
+        f.write(f'[transcription]\nmodel = "{DAEMON_ENTRY_MODEL}"\n'
+                'warmup_on_load = false\n')
+    pid_file = os.path.join(run_dir, "openhush.pid")
+    env = dict(os.environ, PYTHONPATH=ROOT, OPENHUSH_CONFIG=cfg,
+               OPENHUSH_ALLOW_RANDOM_INIT="1", XDG_RUNTIME_DIR=run_dir,
+               OPENHUSH_MODEL_DIR=os.path.join(tmp, "models"))
+    env.pop("OPENHUSH_DRAFT_MODEL", None)
+
+    def cmd(*args):
+        out = io.StringIO()
+        with _env(XDG_RUNTIME_DIR=run_dir, OPENHUSH_CONFIG=cfg), \
+                contextlib.redirect_stdout(out):
+            rc = cli.main(list(args))
+        return rc, out.getvalue()
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "openhush_tpu_torch.cli", "start",
+         *DAEMON_START_ARGS], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        _wait(lambda: (os.path.exists(os.path.join(run_dir, "openhush.sock"))
+                       or proc.poll() is not None), 300,
+              "the daemon's socket", poll=0.1)
+        check(proc.poll() is None, "the daemon is running")
+        up_s = time.monotonic() - t0
+        check(int(open(pid_file).read()) == proc.pid,
+              "the PID file names the daemon")
+        seen = [("status",) + cmd("status")]
+        seen.append(("recording start",) + cmd("recording", "start"))
+        seen.append(("status",) + cmd("status"))
+        time.sleep(1.0)
+        seen.append(("recording stop",) + cmd("recording", "stop"))
+        seen.append(("status",) + cmd("status"))
+        t_stop = time.monotonic()
+        _wait(lambda: "Queue depth: 0" in cmd("status")[1], 120,
+              "the recording's window transcribed", poll=0.1)
+        drain_s = time.monotonic() - t_stop
+        seen.append(("status",) + cmd("status"))
+        seen.append(("stop",) + cmd("stop"))
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        _, err = proc.communicate()
+    for what, code, out in seen:
+        log(f"  entry point: `{what}` -> rc {code}: "
+            f"{out.strip().replace(chr(10), '; ')}")
+    check([c for _, c, _ in seen] == [0] * 7, "every CLI command exits 0")
+    states = [o for w, _, o in seen if w == "status"]
+    check("State: idle" in states[0] and "State: recording" in states[1]
+          and "State: idle" in states[2] and "Queue depth: 1" in states[2]
+          and "Queue depth: 0" in states[3]
+          and "Preprocess failures: 0" in states[3],
+          "status prints idle, recording, idle with the recording's window "
+          "queued, then an empty queue and no preprocess failure")
+    check(rc == 0, f"the daemon exits 0 (rc {rc}): {err[-2000:]}")
+    check(not os.path.exists(pid_file), "the PID file is removed")
+    log(f"  entry point ({DAEMON_ENTRY_MODEL}): up in {up_s:.1f} s, the "
+        f"recording's window out {drain_s:.1f} s after `recording stop`, "
+        f"exit 0, PID file removed")
+
+
 def phase_cli():
     """The CLI in its own process, on one file (greedy, then --beam-size 5)
     and on three. OPENHUSH_NO_FALLBACK=1 keeps it to the t=0 rung: on
@@ -3738,7 +4370,11 @@ def main() -> int:
     from openhush_tpu_torch.ops import (_build, decode_attention, denoise,
                                         dsp, flash_attention, frontend, mel,
                                         quantize)
-    from openhush_tpu_torch.runtime import batcher, daemon, longform
+    from openhush_tpu_torch import cli
+    from openhush_tpu_torch.audio import capture
+    from openhush_tpu_torch.runtime import batcher, daemon, ipc, longform
+    from openhush_tpu_torch.runtime import server as server_mod
+    from openhush_tpu_torch.text import tokenizer
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.runtime.server import EngineServer
     from openhush_tpu_torch.training import data, distill, speaker, train
@@ -3768,6 +4404,11 @@ def main() -> int:
     beam_rows = phase_beam_attention(decode_attention, quantize)
     spec_rows = phase_spec_attention(decode_attention, quantize)
     dsp_rows = phase_dsp_kernels(dsp, denoise)
+    daemon_shapes = phase_daemon_shapes(frontend, flash_attention,
+                                        decode_attention, quantize, mel)
+    for r in rows[:5]:
+        for T, m in daemon_shapes.get(r["name"], {}).items():
+            r.update({f"ctx{T}_{k}": v for k, v in m.items()})
     for r in rows[3:5]:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -3895,6 +4536,16 @@ def main() -> int:
     phase_m2m100(m2m100, train)
     log(f"phase 9 M2M-100 418M: {time.monotonic() - t:.1f} s")
 
+    t = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        daemon_launches = phase_daemon(
+            daemon, ipc, server_mod, tokenizer, capture, cli,
+            [r["counter"] for r in rows[:5]] + [dsp.limiter_gain], tmp)
+    for r in rows[:5] + dsp_rows:
+        if r["counter"].__name__ in daemon_launches:
+            r["daemon_launches"] = daemon_launches[r["counter"].__name__]
+    log(f"phase 10 dictation daemon: {time.monotonic() - t:.1f} s")
+
     kernels = []
     for r in rows + int8_rows + beam_rows + spec_rows + dsp_rows:
         fn = r.pop("counter")
@@ -3916,7 +4567,11 @@ def main() -> int:
                     "oneshot_launches", "int8_self_launches",
                     "verify_launches", "draft_launches", "server_launches",
                     "server_verify_launches", "chain_bound_ms",
-                    "distill_launches", *(
+                    "distill_launches", "daemon_launches", *(
+                        f"ctx{T}_{name}" for T in DAEMON_CTXS
+                        for name in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")),
+                    *(
                         "chunk5s_" + name for name in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "chain_bound_ms")), *(

@@ -1,19 +1,33 @@
-"""openhush-torch CLI: the `transcribe` subcommand of openhush_tpu/cli.py, on
-the GPU.
+"""openhush-torch CLI: the subcommands of openhush_tpu/cli.py, on the GPU.
 
-Usage: python -m openhush_tpu_torch.cli transcribe FILE [FILE ...]
-[--model large-v3] [--format text|json|srt|vtt|timestamped] [--beam-size K]
-[--draft MODEL] [--random-init] [--device cpu]
+Usage: python -m openhush_tpu_torch.cli [--version] [-v] COMMAND ...
+
+    transcribe FILE [FILE ...] [--model M] [--language L]
+        [--format text|json|srt|vtt|timestamped] [--beam-size K]
+        [--draft MODEL] [--random-init] [--device cpu]
+    start [--no-tray] [--device cpu] | stop | status
+    recording start|stop|toggle|continuous
+
+The daemon subcommands go through runtime/daemon_cli.py to the port's
+runtime/daemon.py (`start` runs the dictation daemon on the card; the others
+talk to it over its Unix socket). The reference's other subcommands (model,
+config, device, record, ...) name the ROADMAP item that ports them and exit
+2. Logging: OPENHUSH_LOG, else -v (info) / -vv (debug), else the config
+file's logging.level.
+
+`transcribe` resolves its model, language and draft as the reference's
+does (openhush_tpu/cli.py:54-56,79-80): the flag, else the config file
+(utils/config.py: transcription.effective_model(), .language,
+.draft_model), and the draft at last OPENHUSH_DRAFT_MODEL.
 
 One file runs the one-shot engine's seek loop; several files run their seek
 loops together through the continuous-batching server
 (runtime/longform.py), as the reference CLI does. --beam-size K runs beam
 search at T=0: the one-shot engine's, or the server's beam groups. --draft
-MODEL (else OPENHUSH_DRAFT_MODEL) runs the one-shot engine's T=0 rung as
+MODEL (else the config file's, else OPENHUSH_DRAFT_MODEL) runs the one-shot
+engine's T=0 rung as
 speculative decoding with that draft; several files run the server without
-it, as the reference's CLI does. The reference's further fallback to the
-config file's `transcription.draft_model` waits for the port's copy of
-utils/config.py. The transcript (text
+it, as the reference's CLI does. The transcript (text
 block, JSON object, or subtitle body; per file, headed, for several files,
 and a JSON list with a "file" key) goes to stdout, with the reference's JSON
 keys (src/main.rs:1028-1036); progress lines go to stderr.
@@ -35,7 +49,7 @@ def _add_transcribe(sub):
     p.add_argument("file", nargs="+")
     p.add_argument("--format", "-f", default="text",
                    help="text|json|srt|vtt|timestamped")
-    p.add_argument("--model", "-m", default="large-v3",
+    p.add_argument("--model", "-m", default=None,
                    help="tiny|base|small|medium|large-v2|large-v3|large-v3-turbo")
     p.add_argument("--language", "-l", default=None)
     p.add_argument("--translate", action="store_true")
@@ -63,6 +77,7 @@ def cmd_transcribe(args) -> int:
     from openhush_tpu_torch.audio.wav import load_wav
     from openhush_tpu_torch.runtime.engine import WhisperEngine
     from openhush_tpu_torch.text import formats
+    from openhush_tpu_torch.utils.config import Config
 
     files = args.file
     for f in files:
@@ -70,6 +85,9 @@ def cmd_transcribe(args) -> int:
             print(f"File not found: {f}", file=sys.stderr)
             return 1
     fmt = args.format.lower()
+    config = Config.load_or_default()
+    model = args.model or config.transcription.effective_model()
+    language = args.language or config.transcription.language
 
     t_load = time.monotonic()
     try:
@@ -83,16 +101,18 @@ def cmd_transcribe(args) -> int:
 
     t_model = time.monotonic()
     try:
-        engine = WhisperEngine(args.model, language=args.language or "auto",
+        engine = WhisperEngine(model, language=language,
                                translate=args.translate, dtype=args.dtype,
                                allow_random_init=args.random_init or
                                os.environ.get(
                                    "OPENHUSH_ALLOW_RANDOM_INIT") == "1",
-                               draft_model=args.draft, device=args.device)
+                               draft_model=args.draft
+                               or config.transcription.draft_model or None,
+                               device=args.device)
     except (FileNotFoundError, RuntimeError) as e:
         print(str(e), file=sys.stderr)
         return 1
-    _progress(f"Model loaded: {args.model} on {engine.device} in "
+    _progress(f"Model loaded: {model} on {engine.device} in "
               f"{(time.monotonic() - t_model) * 1000:.0f}ms")
 
     t0 = time.monotonic()
@@ -117,7 +137,7 @@ def cmd_transcribe(args) -> int:
                 "audio_duration_secs": duration,
                 "transcription_time_ms": int(share * 1000),
                 "real_time_factor": share / max(duration, 1e-9),
-                "model": args.model,
+                "model": model,
             }
             if len(files) > 1:
                 payload = {"file": path, **payload}
@@ -159,14 +179,57 @@ def _transcribe_batch(engine, audios, args):
         task="translate" if args.translate else "transcribe")
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
+def build_parser() -> argparse.ArgumentParser:
+    from openhush_tpu_torch import __version__
+    from openhush_tpu_torch.runtime.daemon_cli import SUBCOMMANDS
+    p = argparse.ArgumentParser(
         prog="openhush-torch",
         description="Whisper transcription on the GPU (PyTorch/CUDA port)")
-    sub = parser.add_subparsers(dest="command", required=True)
+    p.add_argument("--version", action="version",
+                   version=f"openhush-tpu-torch {__version__}")
+    p.add_argument("--verbose", "-v", action="count", default=0)
+    sub = p.add_subparsers(dest="command")
     _add_transcribe(sub)
+    for name, helptext, _ in SUBCOMMANDS:
+        sub.add_parser(name, help=helptext, add_help=False,
+                       prefix_chars="\x00").add_argument(
+            "args", nargs=argparse.REMAINDER)
+    return p
+
+
+def _setup_logging(verbose: int) -> None:
+    """Priority: OPENHUSH_LOG > --verbose count > the config file's
+    logging.level (the reference's utils/tracing.setup_logging)."""
+    import logging
+
+    level = os.environ.get("OPENHUSH_LOG")
+    if not level:
+        if verbose:
+            level = "debug" if verbose >= 2 else "info"
+        else:
+            from openhush_tpu_torch.utils.config import Config
+            try:
+                level = Config.load_or_default().logging.level
+            except Exception:  # noqa: BLE001 — a broken file must not stop
+                level = "info"
+    numeric = getattr(logging, str(level).upper(), logging.INFO)
+    logging.basicConfig(
+        level=numeric,
+        format="%(asctime)s %(levelname)-5s %(name)s: %(message)s")
+    logging.getLogger().setLevel(numeric)
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
-    return cmd_transcribe(args)
+    _setup_logging(args.verbose)
+    if args.command == "transcribe":
+        return cmd_transcribe(args)
+    if args.command is None:
+        parser.print_help()
+        return 0
+    from openhush_tpu_torch.runtime import daemon_cli
+    return daemon_cli.dispatch(args.command, args.args)
 
 
 def run() -> None:

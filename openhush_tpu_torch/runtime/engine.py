@@ -1,8 +1,8 @@
 """WhisperEngine: model lifecycle + long-form transcription, on the GPU.
 
 Port of openhush_tpu/runtime/engine.py: loads a checkpoint in the JAX
-package's npz layout (or takes injected parameters, or random weights),
-and runs the 30 s-window seek loop with temperature fallback,
+package's npz layout (or takes injected parameters, or random weights:
+`random_init` says which), and runs the 30 s-window seek loop with temperature fallback,
 previous-text conditioning, timestamp segmentation, language detection and
 the translate flag — whisper.cpp's `full` pipeline, which the reference
 drives at src/engine/whisper.rs:204-305.
@@ -207,17 +207,22 @@ class WhisperEngine:
             # the activation dtype follows them.
             self.params = params
             self.dtype = params["decoder"]["pos_emb"].dtype
+            self.random_init = False
         elif os.path.exists(path):
             self.params = from_numpy_params(load_npz(path), self.dtype,
                                             self.device)
+            self.random_init = False
         elif allow_random_init:
             gen = torch.Generator(device=self.device).manual_seed(0)
             self.params = init_params(self.cfg, gen, self.dtype, self.device)
+            self.random_init = True
         else:
             raise FileNotFoundError(
                 f"Model not found: {path}\n"
-                f"Convert a HF checkpoint with: "
-                f"python -m openhush_tpu.cli model convert {model} "
+                f"This package cannot convert checkpoints yet (ROADMAP "
+                f"A9c). Convert a HF checkpoint with the JAX package's "
+                f"CLI, whose npz this package reads: python -m "
+                f"openhush_tpu.cli model convert {model} "
                 f"--hf-path /path/to/hf_checkpoint")
         if quantize_weights:
             # int8 decoder weights, per output channel (the dense leaves
@@ -428,3 +433,27 @@ class WhisperEngine:
         return TranscriptionResult(
             text=text, language=detected_language or "en",
             segments=segments, duration_ms=duration_ms, windows=windows)
+
+    # -- startup benchmark (chunk-interval auto-tune) ------------------------
+
+    def benchmark_chunk_interval(self, margin: float = 0.2,
+                                 fallback: float = 5.0) -> float:
+        """Measure transcription overhead on 2 s of silence and derive the
+        streaming chunk interval = overhead × (1+margin), clamped to
+        [0.5, 4 x fallback]. Parity: src/engine/whisper.rs:329-382, as
+        openhush_tpu/runtime/engine.py's; the first call warms the kernels
+        (their build on the card) and is not timed. A failure falls back to
+        `fallback` on the CPU, as the reference's does; on the card it
+        propagates, so that a kernel that fails to build or launch stops
+        the daemon's start instead of hiding behind a fixed interval."""
+        silence = np.zeros(2 * mel_ops.SAMPLE_RATE, np.float32)
+        try:
+            self.transcribe(silence, language="en")
+            t0 = time.monotonic()
+            self.transcribe(silence, language="en")
+            overhead = time.monotonic() - t0
+            return max(0.5, min(fallback * 4, overhead * (1.0 + margin)))
+        except Exception:  # noqa: BLE001 — fall back to a fixed interval
+            if self.device.type == "cuda":
+                raise
+            return fallback

@@ -24,7 +24,11 @@ window decodes alone; "always"; "never"), with the same tokens as the plain
 step.
 
 Differences from the reference: the memory budgeter reads the card's
-capacity from torch.cuda.mem_get_info.
+capacity from torch.cuda.mem_get_info; a preprocess that raises on a window
+is logged at error level and counted in `preprocess_failures` (the window
+is still transcribed from its raw audio, as the reference does, which only
+warns: the reference's hook may be a missing host DSP library, the port's
+runs the card's kernels, whose failure must not pass unseen).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ class WindowResult:
     compression_ratio: float = 0.0
     skipped_silence: bool = False  # no_speech gate fired → empty result
     language: str = "en"           # resolved (possibly auto-detected)
+    steps: int = 0                 # decode steps of the final rung (EOT too)
 
 
 def compression_ratio(text: str) -> float:
@@ -252,6 +257,7 @@ class EngineServer:
                                 int8_self_cache=self.int8_self_cache)
         # Per-window preprocessing (denoise/normalize/...), applied in prep.
         self.preprocess = preprocess
+        self.preprocess_failures = 0     # windows whose preprocess raised
         # Quality guards: whisper's heuristic ladder applied per window.
         self.temperatures = tuple(temperatures) or (0.0,)
         self.compression_ratio_threshold = compression_ratio_threshold
@@ -672,8 +678,10 @@ class EngineServer:
             if self.preprocess is not None:
                 try:
                     job.audio = self.preprocess(job.audio)
-                except Exception as e:  # noqa: BLE001 — degrade, keep audio
-                    log.warning("preprocess failed (%s); using raw audio", e)
+                except Exception:  # noqa: BLE001 — degrade, keep audio
+                    self.preprocess_failures += 1
+                    log.exception("preprocess failed on window %d; using "
+                                  "raw audio", job.window_id)
             n = min(len(job.audio), n_samples)
             windows[j, :n] = job.audio[:n]
         need_detect = any(j.language in ("auto", "", None) for j in jobs)
@@ -811,7 +819,8 @@ class EngineServer:
                                          or now) - info.submitted_at,
                     latency=now - info.submitted_at,
                     temperature=temp, compression_ratio=cr,
-                    skipped_silence=skipped, language=info.language)
+                    skipped_silence=skipped, language=info.language,
+                    steps=int(lengths[slot]))
                 q = self._results.get(info.session_id)
                 if q is not None:
                     q.put(result)

@@ -157,8 +157,11 @@ def test_transcribe_validates_and_refuses_unported_options(weights_pair,
 
 
 def _run_cli(*args):
+    # Two intra-op threads: the subprocess shares the CPU with the other
+    # test workers, and an oversubscribed OpenMP pool runs many times
+    # slower than a small one.
     env = dict(os.environ, PYTHONPATH=REPO, OPENHUSH_NO_FALLBACK="1",
-               OPENHUSH_GELU="erf")
+               OPENHUSH_GELU="erf", OMP_NUM_THREADS="2")
     return subprocess.run(
         [sys.executable, "-m", "openhush_tpu_torch.cli", "transcribe",
          os.path.join(REPO, "tests", "data", "speechlike.wav"),
