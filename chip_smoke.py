@@ -143,23 +143,42 @@ Phases, each printing its own lines and its seconds:
      first row's first 16 tokens against the CPU's, wall per token, host
      wall and device busy per decode step, peak memory;
   10. the dictation daemon: `_build_daemon()` from a config file with
-     model = "large-v3" (random weights, audio_ctx 512, warmup), driven over
-     its IPC socket on a thread with a real-time FileSource: six
-     push-to-talk cycles of 3-8 s and 30 s of continuous dictation, under a
-     device-only trace (per window: submit-to-text latency, tokens, steps;
-     stop-to-final p50 and p90; busy share), each window's text held to a
-     plain EngineServer's, preprocess_failures 0, then unload_model
-     (memory back) and load_model (timed); then `python -m
-     openhush_tpu_torch.cli start --no-tray` with model = "large-v3"
+     model = "large-v3" (random weights, audio_ctx 512, warmup) and the
+     REST API on 127.0.0.1 at a free port with an API key, driven on a
+     thread with a real-time FileSource: three push-to-talk cycles of 3, 5
+     and 8 s over its IPC socket, one over HTTP (POST start and stop; then GET
+     status: queue_depth 0, preprocess_failures 0; a 401 without the key),
+     one over D-Bus on a private session bus where dbus-daemon is on PATH
+     (StartRecording, StopRecording, two IsRecordingChanged signals,
+     GetStatus; else one line says that this drive did not run), F2's
+     pair (a second press 0.1 s after a release while its final window
+     decodes: both texts out in order, 0 pending) and 30 s of continuous
+     dictation, under a device-only trace (per window: submit-to-text
+     latency, tokens, steps; stop-to-final p50 and p90; busy share), each
+     window's text held to a plain EngineServer's, preprocess_failures 0,
+     then unload_model (memory back) and load_model (timed); then `python
+     -m openhush_tpu_torch.cli start --no-tray` with model = "large-v3"
      (random weights, no warmup) driven by `status`, `recording
      start|stop` (one window transcribed) and `stop`;
+  11. `record` on the card: `python -m openhush_tpu_torch.cli record
+     --source file:<wav> --format srt --diarize --model large-v3 -o <srt>`
+     in a subprocess on phase 8's 45 s of two synthetic speakers (random
+     weights, a word vocabulary, no --max-duration): it exits 0 by itself
+     within a deadline with its engine on CUDA, its 10 windows' texts
+     equal a plain in-process EngineServer's on the same chunk cut (in its
+     prep batches) and its speakers the in-process diarizer's dominant
+     speakers; wall, audio seconds a wall second, each window's
+     submit-to-result latency, the diarizer's host time a chunk, and an
+     in-process repeat under a device-only trace (busy share, the
+     diarizer's share of the loop, K1-K5 launches);
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row, from 4f's one-shot speculative engine for the two verify
 rows, from 4c-audio's preprocess server for the three DSP rows; K1-K5 also
-carry phase 4g's launches as distill_launches, K1-K5 and the limiter
-phase 10's as daemon_launches, and K1, K2, K4 and K5 their daemon-shape
+carry phase 4g's launches as distill_launches and phase 11's as
+record_launches, K1-K5 and the limiter phase 10's as daemon_launches, and
+K1, K2, K4 and K5 their daemon-shape
 measurements as ctx256_* and ctx512_*) and, last, the
 `{"ok": true, "device": ...}` line. Any failure raises, so the script
 exits non-zero and prints no result. It never runs on the CPU: without CUDA
@@ -172,6 +191,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3806,13 +3826,21 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
         log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
 
 
-# Phase 10, the daemon: push-to-talk cycles (seconds of speech each), the
-# silence around them, and the continuous session over gated speech.
-DAEMON_PTT_SECS = (3.0, 4.0, 5.0, 6.0, 7.0, 8.0)
+# Phase 10, the daemon: push-to-talk cycles over IPC (seconds of speech
+# each; three of them, a depth that leaves room for the surfaces' cycles
+# and phase 11), the silence around them, and the continuous session over
+# gated speech.
+DAEMON_PTT_SECS = (3.0, 5.0, 8.0)
 # Near silence between the cycles: the drive waits for a cycle's windows
-# before the next press, since the daemon (as the reference's) drains only
-# its current session (ROADMAP C, F2).
+# before the next press, so that each cycle's latency is its own.
 DAEMON_GAP_SECS = 1.5
+# Then one cycle over the REST API, one over D-Bus (where dbus-daemon is on
+# PATH; else its audio plays with no press), and F2's pair: a second press
+# DAEMON_F2_PRESS_SECS after the first's release, while its final window
+# decodes.
+DAEMON_SURFACE_CYCLES = (("http", 4.0), ("dbus", 4.0), ("f2a", 5.0),
+                         ("f2b", 3.0))
+DAEMON_F2_PRESS_SECS = 0.1
 DAEMON_CONT_SECS = 30.0
 DAEMON_MODEL = "large-v3"        # run 1, in process, at full width
 DAEMON_ENTRY_MODEL = "large-v3"  # run 2, through the entry point
@@ -3861,12 +3889,16 @@ def phase_daemon(daemon_mod, ipc, server_mod, tokenizer_mod, capture, cli,
                  counters, tmp):
     """The dictation daemon on the card. Run 1, in process, at large-v3's
     width: a config file with model = "large-v3" in a temp XDG_CONFIG_HOME,
-    a temp XDG_RUNTIME_DIR, OPENHUSH_ALLOW_RANDOM_INIT=1; `_build_daemon()`
-    (what `start` runs: the engine, the preprocess, the server at
-    audio_ctx 512 and its warmup), build and warmup timed apart; its source
-    swapped for a real-time FileSource; `Daemon.run` on a thread, driven
-    over IPC through six push-to-talk cycles of 3-8 s and one continuous
-    session over 30 s of gated speech, under a device-only trace; then
+    a temp XDG_RUNTIME_DIR, OPENHUSH_ALLOW_RANDOM_INIT=1, `[api] enabled`
+    on a free port with an API key, and a private D-Bus session bus where
+    dbus-daemon is on PATH; `_build_daemon()` (what `start` runs: the
+    engine, the preprocess, the server at audio_ctx 512 and its warmup),
+    build and warmup timed apart; its source swapped for a real-time
+    FileSource; `Daemon.run` on a thread, driven through three push-to-talk
+    cycles over IPC, one over the REST API, one over D-Bus, F2's pair (the
+    second press DAEMON_F2_PRESS_SECS after the first's release) and one
+    continuous session over 30 s of gated speech, under a device-only
+    trace; then
     unload_model (memory reserved before and after) and load_model (timed).
     The instrumentation (wrappers on the server instance) is installed
     after the warmup, so it sees only the drive's windows. Printed: each
@@ -3876,21 +3908,41 @@ def phase_daemon(daemon_mod, ipc, server_mod, tokenizer_mod, capture, cli,
     weights, audio_ctx and preprocess (the windows replayed in the prep
     batches the daemon made), the daemon's outputs equal the tracker's
     replay of those texts, preprocess_failures 0, K1-K5 and the limiter
-    launched, the unload gave back at least the weights' bytes. Texts are
+    launched, the REST cycle's replies, status and 401, the D-Bus cycle's
+    signals and GetStatus, F2's first final in flight at the second press
+    and both cycles' texts out in order with 0 pending, the unload gave
+    back at least the weights' bytes. Texts are
     a word a token (_words_decode), on the daemon and the plain server
     alike. Run 2, through the entry point: `python -m openhush_tpu_torch.cli
     start --no-tray` with model = "large-v3" (random weights, no warmup),
     driven by the CLI's `status`, `recording start`, `recording stop` (its
     window transcribed before `stop`) and `stop`. `counters`: K1-K5's
     wrappers and the limiter's; returns their launches in run 1."""
+    import socket
     from torch.profiler import ProfilerActivity, profile
+    from openhush_tpu_torch.api.server import hash_api_key
     EngineServer = server_mod.EngineServer
     run_dir = os.path.join(tmp, "run")
     cfg_home = os.path.join(tmp, "config")
     os.makedirs(os.path.join(cfg_home, "openhush"))
     os.makedirs(run_dir)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        api_port = sock.getsockname()[1]
     with open(os.path.join(cfg_home, "openhush", "config.toml"), "w") as f:
-        f.write(f'[transcription]\nmodel = "{DAEMON_MODEL}"\n')
+        f.write(f'[transcription]\nmodel = "{DAEMON_MODEL}"\n\n'
+                f'[api]\nenabled = true\nhost = "127.0.0.1"\n'
+                f'port = {api_port}\n'
+                f'api_key_hash = "{hash_api_key(DAEMON_API_KEY)}"\n')
+    bus, bus_address = None, None
+    if shutil.which("dbus-daemon"):
+        bus = subprocess.Popen(
+            ["dbus-daemon", "--session", "--print-address", "--nofork"],
+            stdout=subprocess.PIPE, text=True)
+        bus_address = bus.stdout.readline().strip()
+    else:
+        log("  D-Bus drive NOT RUN: no dbus-daemon on PATH (its cycle's "
+            "audio plays with no press; not counted as passed)")
     warmups = []
     warmup = EngineServer.warmup
 
@@ -3907,19 +3959,45 @@ def phase_daemon(daemon_mod, ipc, server_mod, tokenizer_mod, capture, cli,
         with _env(XDG_CONFIG_HOME=cfg_home, XDG_RUNTIME_DIR=run_dir,
                   OPENHUSH_ALLOW_RANDOM_INIT="1", OPENHUSH_CONFIG=None,
                   OPENHUSH_MODEL_DIR=os.path.join(tmp, "models"),
-                  OPENHUSH_DRAFT_MODEL=None):
+                  OPENHUSH_DRAFT_MODEL=None,
+                  DBUS_SESSION_BUS_ADDRESS=bus_address):
             launches = _daemon_in_process(daemon_mod, ipc, server_mod,
                                           capture, counters, warmups,
-                                          run_dir, ProfilerActivity, profile)
+                                          run_dir, ProfilerActivity, profile,
+                                          api_port, bus_address)
     finally:
         EngineServer.warmup = warmup
         tokenizer_mod.WhisperTokenizer.decode = decode
+        if bus is not None:
+            bus.terminate()
+            bus.wait(timeout=10)
     _daemon_entry_point(cli, tmp)
     return launches
 
 
+DAEMON_API_KEY = "chip-smoke-key"
+
+
+def _http(port: int, method: str, path: str, key=None):
+    """(status, JSON body) of one REST API request."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method,
+                                 data=b"" if method == "POST" else None)
+    if key:
+        req.add_header("X-API-Key", key)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
-                       warmups, run_dir, ProfilerActivity, profile):
+                       warmups, run_dir, ProfilerActivity, profile, api_port,
+                       bus_address):
+    from openhush_tpu_torch.utils import dbus as dbus_mod
     EngineServer = server_mod.EngineServer
     torch.cuda.synchronize()
     torch.cuda.empty_cache()   # earlier phases' cache out of the reading
@@ -3942,11 +4020,14 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
     # The timeline: push-to-talk cycles with silence around them, then the
     # continuous session.
     parts, ptt, pos = [_quiet(1.0, SEED + 80)], [], 16000
-    for i, secs in enumerate(DAEMON_PTT_SECS):
+    cycles = [("ipc", secs) for secs in DAEMON_PTT_SECS]
+    cycles += list(DAEMON_SURFACE_CYCLES)
+    for i, (kind, secs) in enumerate(cycles):
         speech = speechlike(secs, SEED + 81 + i)
-        ptt.append((pos, pos + len(speech)))
-        parts += [speech, _quiet(DAEMON_GAP_SECS, SEED + 90 + i)]
-        pos += len(speech) + int(16000 * DAEMON_GAP_SECS)
+        ptt.append((kind, pos, pos + len(speech)))
+        gap = DAEMON_F2_PRESS_SECS if kind == "f2a" else DAEMON_GAP_SECS
+        parts += [speech, _quiet(gap, SEED + 100 + i)]
+        pos += len(speech) + int(16000 * gap)
     cont = gated_speech(DAEMON_CONT_SECS)
     cont_span = (pos, pos + len(cont))
     parts += [cont, _quiet(2.0, SEED + 99)]
@@ -4013,19 +4094,69 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
             lambda: (client.send("queue_depth")["queue_depth"] == 0
                      and all(w in polled for w in submitted)), 120,
             "every window transcribed", poll=0.05)
-        late = []
-        for start, end in ptt:
-            done()
+        late, seqs, surfaces = [], {}, {}
+        dbus_client = listener = None
+        if bus_address:
+            _wait(lambda: d._dbus is not None, 30, "the D-Bus service")
+            dbus_client = dbus_mod.DbusClient(address=bus_address)
+            listener = dbus_mod.DbusClient(address=bus_address)
+        for kind, start, end in ptt:
+            if kind == "dbus" and dbus_client is None:
+                continue             # no bus: its audio plays unpressed
+            if kind != "f2b":
+                done()
             late.append(max(0, d.ring.current_position() - start) / 16000)
             at(start)
-            check(client.send("start_recording") == {"ok": True},
-                  "IPC start_recording")
+            if kind == "dbus":
+                listener.subscribe_recording_changed()
+                check(dbus_client.call("StartRecording") is True,
+                      "D-Bus StartRecording")
+            elif kind == "http":
+                surfaces["http_start"] = _http(
+                    api_port, "POST", "/api/v1/recording/start",
+                    DAEMON_API_KEY)
+                check(surfaces["http_start"] == (200, {
+                    "ok": True, "message": "Recording started"}),
+                    f"REST start: {surfaces['http_start']}")
+            else:
+                check(client.send("start_recording") == {"ok": True},
+                      "IPC start_recording")
+            if kind == "f2b":
+                surfaces["f2_in_flight"] = [sid for _, sid in d._draining]
             seq = d._sequence
+            seqs[kind] = seq
             at(end)
             stops[seq] = time.monotonic()
-            check(client.send("stop_recording") == {"ok": True},
-                  "IPC stop_recording")
+            if kind == "dbus":
+                check(dbus_client.call("StopRecording") is True,
+                      "D-Bus StopRecording")
+                surfaces["dbus_signals"] = [
+                    listener.wait_recording_changed(30) for _ in range(2)]
+                surfaces["dbus_status"] = json.loads(
+                    dbus_client.call("GetStatus"))
+            elif kind == "http":
+                surfaces["http_stop"] = _http(
+                    api_port, "POST", "/api/v1/recording/stop",
+                    DAEMON_API_KEY)
+                check(surfaces["http_stop"] == (200, {
+                    "ok": True, "message": "Recording stopped"}),
+                    f"REST stop: {surfaces['http_stop']}")
+            else:
+                check(client.send("stop_recording") == {"ok": True},
+                      "IPC stop_recording")
+            if kind == "http":
+                done()
+                surfaces["http_status"] = _http(
+                    api_port, "GET", "/api/v1/status", DAEMON_API_KEY)
+                surfaces["http_401"] = _http(api_port, "GET",
+                                             "/api/v1/status")
+                surfaces["http_health"] = _http(api_port, "GET",
+                                                "/api/v1/health")
         done()
+        surfaces["f2_pending"] = d.tracker.pending_count
+        for c in (dbus_client, listener):
+            if c is not None:
+                c.close()
         late.append(max(0, d.ring.current_position() - cont_span[0]) / 16000)
         at(cont_span[0])
         check(client.send("start_continuous") == {"ok": True},
@@ -4052,7 +4183,9 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
         kinds[w] = ("vad" if seq == cont_seq else
                     "final" if final else "partial")
     log(f"  drive: {len(DAEMON_PTT_SECS)} push-to-talk cycles of "
-        f"{DAEMON_PTT_SECS} s and {DAEMON_CONT_SECS} s of continuous "
+        f"{DAEMON_PTT_SECS} s over IPC, then {DAEMON_SURFACE_CYCLES} (REST, "
+        f"D-Bus{'' if bus_address else ' not pressed'}, F2's pair over "
+        f"IPC) and {DAEMON_CONT_SECS} s of continuous "
         f"dictation in {drive_s:.2f} s wall; {len(windows)} windows "
         f"({sum(k == 'partial' for k in kinds.values())} partial, "
         f"{sum(k == 'final' for k in kinds.values())} final, "
@@ -4103,9 +4236,69 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
           "IPC status reply")
     check(all(n > 0 for n in launches.values()),
           "K1-K5 and the limiter launched during the phase")
-    check(len(finals) == len(DAEMON_PTT_SECS)
+    pressed = len(DAEMON_PTT_SECS) + len(DAEMON_SURFACE_CYCLES) - (
+        0 if bus_address else 1)
+    check(len(finals) == pressed
           and sum(k == "vad" for k in kinds.values()) >= 2,
           "a final window a cycle and VAD segments in the continuous run")
+
+    # The surfaces: the REST API cycle, the D-Bus cycle, F2's pair.
+    def final_of(seq):
+        return next(w for w in finals if w >> 32 == seq)
+
+    def out_at(w):
+        return outputs[w][0][0] if w in outputs else None
+
+    http_final = final_of(seqs["http"])
+    check(out_at(http_final) is not None
+          and out_at(http_final) > stops[seqs["http"]],
+          "the REST cycle's text was output after its stop")
+    http_s = out_at(http_final) - stops[seqs["http"]]
+    st_code, st = surfaces["http_status"]
+    log(f"  REST API cycle (POST start/stop on 127.0.0.1:{api_port}): stop "
+        f"-> text {http_s * 1e3:.1f} ms ({polled[http_final][1].steps} "
+        f"decode steps); status {st_code} {st}; without the key "
+        f"{surfaces['http_401']}; health {surfaces['http_health'][0]}")
+    check(st_code == 200 and st["queue_depth"] == 0
+          and st["preprocess_failures"] == 0 and not st["recording"]
+          and st["model"] == DAEMON_MODEL,
+          "REST status: queue_depth 0, preprocess_failures 0")
+    check(surfaces["http_401"][0] == 401
+          and "Missing X-API-Key" in surfaces["http_401"][1]["error"]
+          and surfaces["http_health"][0] == 200,
+          "REST: 401 without the key, health public")
+    if bus_address:
+        dst = surfaces["dbus_status"]
+        dbus_final = final_of(seqs["dbus"])
+        log(f"  D-Bus cycle (private session bus): StartRecording, "
+            f"StopRecording, IsRecordingChanged {surfaces['dbus_signals']}, "
+            f"GetStatus {dst}; stop -> text "
+            f"{(out_at(dbus_final) - stops[seqs['dbus']]) * 1e3:.1f} ms")
+        check(surfaces["dbus_signals"] == [True, False],
+              "two IsRecordingChanged signals: True, then False")
+        check(not dst["recording"] and dst["state"] == "idle"
+              and dst["preprocess_failures"] == 0,
+              "D-Bus GetStatus after StopRecording")
+        check(out_at(dbus_final) is not None,
+              "the D-Bus cycle's text was output")
+    f2a, f2b = final_of(seqs["f2a"]), [w for w in windows
+                                       if w >> 32 == seqs["f2b"]]
+    f2_times = [out_at(f2a)] + [out_at(w) for w in f2b]
+    log(f"  F2: the second press {DAEMON_F2_PRESS_SECS} s after the "
+        f"release, with session(s) {surfaces['f2_in_flight']} still in "
+        f"flight; the first's final out "
+        f"{(f2_times[0] - stops[seqs['f2a']]) * 1e3:.1f} ms after its "
+        f"release, the second's windows after it: "
+        f"{[None if t is None else round((t - f2_times[0]) * 1e3, 1) for t in f2_times[1:]]} "
+        f"ms; pending after {surfaces['f2_pending']}")
+    check(surfaces["f2_in_flight"] != [],
+          "F2: the first cycle's final window was in flight at the press")
+    f2_texts = [polled[w][1].text.strip() for w in [f2a] + f2b]
+    check(f2_texts[0] != "" and all((t is not None) == (x != "") for t, x
+                                    in zip(f2_times, f2_texts))
+          and all(t >= f2_times[0] for t in f2_times[1:] if t is not None)
+          and surfaces["f2_pending"] == 0,
+          "F2: both cycles' texts out, in order, 0 pending")
 
     # The daemon's outputs are the tracker's replay of its window texts.
     from openhush_tpu_torch.runtime.tracker import (ChunkResult,
@@ -4275,6 +4468,216 @@ def _daemon_entry_point(cli, tmp):
         f"exit 0, PID file removed")
 
 
+# Phase 11, `record` on the card: phase 8's 45 s of two synthetic speakers
+# (5 s chunks, 0.5 s overlap: windows at 0, 4.5, ..., 40.5 s), large-v3.
+RECORD_SECS = 45.0
+RECORD_MODEL = "large-v3"
+RECORD_DEADLINE_S = 300
+RECORD_WINDOWS = tuple(4500 * k for k in range(10))
+
+
+def word_vocab(path: str, eot: int) -> None:
+    """A vocab.json in GPT-2's byte-level layout whose ids 0-255 are the 256
+    bytes and every later id below EOT the word " w<id>": with it in the
+    model directory, the CLI's tokenizer (WhisperTokenizer.for_model)
+    decodes every token random weights emit, where the built-in byte
+    vocabulary decodes few (chip_smoke has no real vocabulary files)."""
+    from openhush_tpu_torch.text.tokenizer import _bytes_to_unicode
+    enc = _bytes_to_unicode()
+    vocab = {enc[b]: b for b in range(256)}
+    vocab.update({f"{enc[32]}w{i}": i for i in range(256, eot)})
+    with open(path, "w") as f:
+        json.dump(vocab, f)
+
+
+def parse_srt(text: str) -> list:
+    """SRT cues → [(index, start ms, end ms, speaker or None, text)]."""
+    def ms(stamp):
+        hms, milli = stamp.split(",")
+        h, m, sec = map(int, hms.split(":"))
+        return ((h * 60 + m) * 60 + sec) * 1000 + int(milli)
+
+    cues = []
+    for block in text.strip().split("\n\n"):
+        if not block.strip():
+            continue
+        index, times, body = block.strip().split("\n", 2)
+        start, end = times.split(" --> ")
+        speaker = None
+        if body.startswith("<v Speaker "):
+            head, body = body.split(">", 1)
+            speaker = int(head[len("<v Speaker "):])
+        cues.append((int(index), ms(start), ms(end), speaker, body))
+    return cues
+
+
+def phase_record(recording, diarization, sp, counters, tmp):
+    """`python -m openhush_tpu_torch.cli record --source file:<wav> --format
+    srt --diarize --model large-v3 -o <srt>` in a subprocess on phase 8's
+    45 s of two synthetic speakers (random weights, OPENHUSH_LOG=debug, a
+    word vocabulary in the model directory, no --max-duration): it must
+    exit 0 by itself (F3) within RECORD_DEADLINE_S, its engine on CUDA;
+    the SRT (file and live stdout) parses, its cues in order, one for each
+    of the 10 windows, each window's text equal to a plain in-process
+    EngineServer's (recording.build_server: the same random weights, the
+    chunk cut replayed in the prep batches the subprocess logged) and each
+    speaker to the dominant speaker of a fresh in-process
+    DiarizationEngine's diarize_chunk on that chunk. Printed: the wall,
+    audio seconds per wall second, each window's submit-to-result latency
+    and the diarizer's host time a chunk (from the subprocess's log), and,
+    from an in-process repeat of the session under a device-only trace,
+    the busy share and the diarizer's share of the loop. `counters`: K1-K5;
+    returns their launches in the repeat."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from openhush_tpu_torch.audio.capture import FileSource
+    from openhush_tpu_torch.audio.wav import save_wav
+    from openhush_tpu_torch.models.whisper.config import get_config
+    from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
+    models = os.path.join(tmp, "record_models")
+    os.makedirs(models)
+    n_langs = 100
+    word_vocab(os.path.join(models, "vocab.json"),
+               WhisperTokenizer(n_langs).special.eot)
+    cfg_path = os.path.join(tmp, "record.toml")
+    with open(cfg_path, "w") as f:
+        f.write('[transcription]\nlanguage = "auto"\n')
+    audio = conversation(sp, RECORD_SECS, SEED + 85)
+    wav, out = os.path.join(tmp, "meeting.wav"), os.path.join(tmp, "m.srt")
+    save_wav(wav, audio)
+    env = dict(os.environ, PYTHONPATH=ROOT, OPENHUSH_ALLOW_RANDOM_INIT="1",
+               OPENHUSH_MODEL_DIR=models, OPENHUSH_CONFIG=cfg_path,
+               OPENHUSH_LOG="debug")
+    env.pop("OPENHUSH_DRAFT_MODEL", None)
+    t0 = time.monotonic()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "openhush_tpu_torch.cli", "record",
+             "--source", f"file:{wav}", "--format", "srt", "--diarize",
+             "--model", RECORD_MODEL, "-o", out], capture_output=True,
+            text=True, env=env, cwd=ROOT, timeout=RECORD_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"record ended by itself within {RECORD_DEADLINE_S} s")
+    wall = time.monotonic() - t0
+    check(r.returncode == 0,
+          f"record exit {r.returncode}: {r.stderr[-3000:]}")
+    check(f"record: {RECORD_MODEL} on cuda" in r.stderr,
+          "record built its engine on CUDA")
+    batches = [json.loads(m) for m in re.findall(
+        r"prep batch: windows (\[[0-9, ]*\])", r.stderr)]
+    lat = {int(w): float(v) for w, v in re.findall(
+        r"window at (\d+) ms: submit -> result ([0-9.]+) ms", r.stderr)}
+    dz_ms = [float(v) for v in re.findall(
+        r"diarized the chunk at \d+ ms in ([0-9.]+) ms", r.stderr)]
+    cues = parse_srt(open(out).read())
+    live = parse_srt(r.stdout)
+    log(f"  record (subprocess, {RECORD_MODEL}, random weights, "
+        f"--diarize, {RECORD_SECS:.0f} s of audio): exit 0 by itself in "
+        f"{wall:.2f} s wall, {RECORD_SECS / wall:.3f} audio s a wall s "
+        f"(python, torch, the engine's and the diarizer's build included); "
+        f"{len(cues)} cues; prep batches {[len(b) for b in batches]}")
+    log(f"    submit -> result a window: "
+        f"{', '.join(f'{w / 1000:g} s {lat[w]:.1f} ms' for w in sorted(lat))}")
+    log(f"    the diarizer a 5 s chunk (host, on the capture loop): median "
+        f"{np.median(dz_ms):.2f} ms, max {max(dz_ms):.2f} ms over "
+        f"{len(dz_ms)} chunks")
+    check(sorted(lat) == list(RECORD_WINDOWS)
+          and len(dz_ms) == len(RECORD_WINDOWS)
+          and sorted(w for b in batches for w in b) == list(RECORD_WINDOWS),
+          "record: every window submitted, prepared and drained")
+    check([c[0] for c in cues] == list(range(1, len(cues) + 1))
+          and [c[1] for c in cues] == sorted(c[1] for c in cues)
+          and all(c[2] == c[1] + 5000 for c in cues),
+          "the SRT parses, its cues in order")
+    check(sorted(c[1:] for c in live) == sorted(c[1:] for c in cues),
+          "the live SRT on stdout == the file's cues")
+
+    # A plain server on the same weights, the chunk cut replayed in the
+    # subprocess's prep batches; a fresh diarizer on the same chunks.
+    chunks = {w: audio[16 * w:16 * w + 80000] for w in RECORD_WINDOWS}
+    with _env(OPENHUSH_ALLOW_RANDOM_INIT="1", OPENHUSH_MODEL_DIR=models,
+              OPENHUSH_DRAFT_MODEL=None):
+        eng, plain = recording.build_server(RECORD_MODEL)
+        diarizer = diarization.DiarizationEngine.from_local()
+    check(eng.random_init and eng.draft_cfg is None
+          and plain.audio_ctx == get_config(RECORD_MODEL).n_audio_ctx
+          and plain.preprocess is None, "build_server: no draft, full "
+          "audio_ctx, no preprocess")
+    t0 = time.monotonic()
+    sid, got, waiting = plain.open_session(), {}, list(batches)
+    for _ in range(20000):
+        if waiting and plain._pending.empty():
+            for w in waiting.pop(0):
+                plain.submit_window(sid, chunks[w], window_id=w,
+                                    timestamps=False)
+        plain.run_once()
+        while (res := plain.poll(sid)) is not None:
+            got[res.window_id] = res.text.strip()
+        if not waiting and len(got) == len(RECORD_WINDOWS):
+            break
+    replay_s = time.monotonic() - t0
+    speakers = {w: recording.dominant_speaker(
+        diarizer.diarize_chunk(chunks[w], offset_secs=w / 1000))
+        for w in RECORD_WINDOWS}
+    by_start = {c[1]: c for c in cues}
+    same_text = sum(by_start.get(w, (0, 0, 0, None, ""))[4] == got.get(w)
+                    for w in RECORD_WINDOWS)
+    same_spk = sum(w in by_start and by_start[w][3] == speakers[w]
+                   for w in RECORD_WINDOWS)
+    log(f"  in process: {same_text} of {len(RECORD_WINDOWS)} windows' "
+        f"texts equal a plain server's ({replay_s:.1f} s), {same_spk} "
+        f"speakers equal the diarizer's dominant speaker; speakers "
+        f"{[speakers[w] for w in RECORD_WINDOWS]}, texts "
+        f"{[len(got.get(w, '').split()) for w in RECORD_WINDOWS]} words")
+    for w in RECORD_WINDOWS:
+        if w in by_start and by_start[w][4] != got.get(w):
+            a, b = by_start[w][4].split(), got.get(w, "").split()
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            log(f"    window {w} ms: record and plain part at word {i} "
+                f"of {len(a)} and {len(b)}: {a[i:i + 4]} vs {b[i:i + 4]}")
+    check(len(cues) == len(RECORD_WINDOWS)
+          and all(got.get(w) for w in RECORD_WINDOWS),
+          "one cue for each of the 10 windows, each with text")
+    check(same_text == len(RECORD_WINDOWS),
+          "record's window texts == a plain server's on the same cut")
+    check(same_spk == len(RECORD_WINDOWS),
+          "record's speakers == the in-process diarizer's")
+
+    # An in-process repeat of the session, traced.
+    for fn in counters:
+        fn.launches = 0
+    diarizer.reset()
+    session = recording.RecordingSession(
+        recording.RecordingConfig(source="file", output_format="srt",
+                                  enable_diarization=True, live_mode=False),
+        plain, FileSource(audio, realtime=False), diarizer=diarizer)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        session.run()
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+    busy_us, _ = device_time(prof)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    del prof
+    dz_share = sum(session.diarize_secs) / run_s
+    log(f"  in-process repeat (traced): {run_s:.2f} s wall, "
+        f"{RECORD_SECS / run_s:.3f} audio s a wall s, device busy "
+        f"{busy_us / 1e3:.1f} ms: busy share {busy_us / 1e6 / run_s:.4f}; "
+        f"the diarizer {sum(session.diarize_secs) * 1e3:.1f} ms of host "
+        f"on the loop ({dz_share:.4f} of the wall; median "
+        f"{np.median(session.diarize_secs) * 1e3:.2f} ms a chunk); "
+        f"submit -> result median "
+        f"{np.median(list(session.latencies.values())) * 1e3:.1f} ms; "
+        f"launches {launches}")
+    check(busy_us > 0 and all(n > 0 for n in launches.values())
+          and len(session.latencies) == len(RECORD_WINDOWS),
+          "the repeat ran K1-K5 on the card over every window")
+    del eng, plain, diarizer, session
+    return launches
+
+
 def phase_cli():
     """The CLI in its own process, on one file (greedy, then --beam-size 5)
     and on three. OPENHUSH_NO_FALLBACK=1 keeps it to the t=0 rung: on
@@ -4372,7 +4775,8 @@ def main() -> int:
                                         quantize)
     from openhush_tpu_torch import cli
     from openhush_tpu_torch.audio import capture
-    from openhush_tpu_torch.runtime import batcher, daemon, ipc, longform
+    from openhush_tpu_torch.runtime import (batcher, daemon, ipc, longform,
+                                            recording)
     from openhush_tpu_torch.runtime import server as server_mod
     from openhush_tpu_torch.text import tokenizer
     from openhush_tpu_torch.runtime.engine import WhisperEngine
@@ -4546,6 +4950,15 @@ def main() -> int:
             r["daemon_launches"] = daemon_launches[r["counter"].__name__]
     log(f"phase 10 dictation daemon: {time.monotonic() - t:.1f} s")
 
+    t = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        record_launches = phase_record(
+            recording, diarization, speaker,
+            [r["counter"] for r in rows[:5]], tmp)
+    for r in rows[:5]:
+        r["record_launches"] = record_launches[r["counter"].__name__]
+    log(f"phase 11 record: {time.monotonic() - t:.1f} s")
+
     kernels = []
     for r in rows + int8_rows + beam_rows + spec_rows + dsp_rows:
         fn = r.pop("counter")
@@ -4567,7 +4980,8 @@ def main() -> int:
                     "oneshot_launches", "int8_self_launches",
                     "verify_launches", "draft_launches", "server_launches",
                     "server_verify_launches", "chain_bound_ms",
-                    "distill_launches", "daemon_launches", *(
+                    "distill_launches", "daemon_launches",
+                    "record_launches", *(
                         f"ctx{T}_{name}" for T in DAEMON_CTXS
                         for name in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")),

@@ -7,12 +7,15 @@ Usage: python -m openhush_tpu_torch.cli [--version] [-v] COMMAND ...
         [--draft MODEL] [--random-init] [--device cpu]
     start [--no-tray] [--device cpu] | stop | status
     recording start|stop|toggle|continuous
+    record [--source mic|monitor|both|file:PATH] [-o FILE]
+        [--format text|json|srt|vtt|timestamped] [--diarize] [--model M]
+        [--max-duration SECS] [--device cpu]
 
 The daemon subcommands go through runtime/daemon_cli.py to the port's
 runtime/daemon.py (`start` runs the dictation daemon on the card; the others
-talk to it over its Unix socket). The reference's other subcommands (model,
-config, device, record, ...) name the ROADMAP item that ports them and exit
-2. Logging: OPENHUSH_LOG, else -v (info) / -vv (debug), else the config
+talk to it over its Unix socket; `record` runs runtime/recording.py's
+long-form session on the card). The reference's other subcommands (model,
+config, device, ...) name the ROADMAP item that ports them and exit 2. Logging: OPENHUSH_LOG, else -v (info) / -vv (debug), else the config
 file's logging.level.
 
 `transcribe` resolves its model, language and draft as the reference's

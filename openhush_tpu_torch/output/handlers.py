@@ -10,10 +10,8 @@ Parity: src/output/ (1,242 LoC):
   append — each with `{text}/{text_escaped}/{text_base64}/{date}/{time}/
   {duration}/{model}/{seq_id}` substitution (actions.rs:60-90) and timeouts.
 
-A copy of openhush_tpu/output/handlers.py. The macOS and Windows clipboard
-and paste go through utils/platform_hosts.py, which is not ported yet
-(ROADMAP A9b): there the port logs that once and reports the text as not
-delivered, so OutputHandler prints it to stdout.
+A copy of openhush_tpu/output/handlers.py; the macOS and Windows clipboard
+and paste go through the port's utils/platform_hosts.py.
 """
 
 from __future__ import annotations
@@ -82,22 +80,10 @@ _CLIPBOARD_TOOLS = (
 )
 
 
-_logged_missing: set[str] = set()
-
-
-def _no_host_platform(what: str) -> bool:
-    """The macOS/Windows host hooks are not ported yet: log once, report
-    the text as not delivered."""
-    if what not in _logged_missing:
-        _logged_missing.add(what)
-        log.warning("%s on %s needs utils/platform_hosts.py, not ported yet "
-                    "(ROADMAP A9b)", what, sys.platform)
-    return False
-
-
 def copy_to_clipboard(text: str) -> bool:
     if sys.platform == "darwin" or sys.platform.startswith("win"):
-        return _no_host_platform("clipboard")
+        from ..utils.platform_hosts import get_host_platform
+        return get_host_platform().copy_to_clipboard(text)
     for cmd, _ in _CLIPBOARD_TOOLS:
         if shutil.which(cmd[0]):
             try:
@@ -114,7 +100,8 @@ def paste_text(text: str, method: str = "type") -> bool:
     """Type text at the cursor or inject Ctrl+V
     (parity: paste.rs:43-142)."""
     if sys.platform == "darwin" or sys.platform.startswith("win"):
-        return _no_host_platform("paste")
+        from ..utils.platform_hosts import get_host_platform
+        return get_host_platform().paste_text(text, method)
     if method == "type":
         for tool, args in (("wtype", [text]),
                            ("xdotool", ["type", "--clearmodifiers", text])):

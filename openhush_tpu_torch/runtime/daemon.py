@@ -16,13 +16,25 @@ cleanup with /proc existence + cmdline verification. The PID file and the
 IPC socket live in $XDG_RUNTIME_DIR (else /tmp): give each concurrent
 daemon, a test's included, its own directory.
 
+The control surfaces start in `run` as the reference's do: the system
+tray (ui/tray_windows.create_tray: SNI, macOS or Windows), the global
+hotkey (runtime/hotkey_hosts.create_hotkey_listener, by [hotkey] mode),
+the REST API (api/server.ApiServer, when [api] enabled) and the D-Bus
+service (utils/dbus.DbusService); each that cannot start on this host is
+logged and the daemon carries on. [feedback] plays the start/stop cue and
+shows the notification through utils/platform_hosts.
+
 Differences from the reference:
-- The desktop surfaces are not ported yet (ROADMAP A9b): the tray, the
-  global hotkey, the D-Bus service and the beep and notification behind
-  [feedback] each log once that they are missing, and the daemon carries
-  on under IPC control (`recording start|stop`). `[api] enabled = true`
-  raises NotImplementedError at `run`, since the reference does not treat
-  the REST API as optional.
+- A window still in flight when the next recording starts is not lost
+  (ROADMAP C, F2): the reference drains only its current session, so the
+  text of such a window never reaches the output, the tracker keeps it
+  pending for good and refuses every idle unload after. Here
+  `_drain_results` polls every earlier session that still has windows in
+  flight, in session order, before the current one, and closes each once
+  it has drained; the current session's results wait until then, so texts
+  go out in the order of the presses.
+- The REST API's `status` reply carries `preprocess_failures`, as the IPC
+  reply does (next item).
 - `build_preprocess` runs its chain once on a short silent window when it
   is built, so a DSP kernel that fails to build or to launch raises there
   and not, window after window, inside the server (ROADMAP C, F1). A
@@ -40,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import gc
+import json
 import logging
 import os
 import signal
@@ -61,17 +74,6 @@ from openhush_tpu_torch.runtime.ring_buffer import RingBuffer
 from openhush_tpu_torch.runtime.tracker import ChunkResult, TranscriptionTracker
 
 log = logging.getLogger(__name__)
-
-# The surfaces the reference daemon starts behind try/except, and the
-# ROADMAP item that ports each.
-NOT_PORTED = {
-    "tray": "the system tray (ROADMAP A9b)",
-    "hotkey": "the global hotkey (ROADMAP A9b)",
-    "dbus": "the D-Bus service (ROADMAP A9b)",
-    "feedback": "the [feedback] beep and desktop notification "
-                "(ROADMAP A9b)",
-}
-
 
 class DaemonState(enum.Enum):
     IDLE = "idle"
@@ -170,7 +172,6 @@ class Daemon:
         self._device_lock = threading.Lock()
         self._running = False
         self._last_activity = time.monotonic()
-        self._logged_missing: set[str] = set()
         self.source = audio_source
         self._handler = None
         if output is None:
@@ -274,15 +275,14 @@ class Daemon:
         self._vad_pos = 0
         self._stop_event = threading.Event()
         self._lock = threading.Lock()
-        self._dbus = None            # the D-Bus service (not ported yet)
+        # Windows submitted and not yet polled, by session; and the earlier
+        # sessions (server, session id) that still had windows in flight
+        # when the next one opened, in session order (F2). Both under
+        # self._lock.
+        self._in_flight: dict[int, int] = {}
+        self._draining: list[tuple[object, int]] = []
+        self._tray = self._hotkey = self._api = self._dbus = None
         self._ipc = ipc.create_server(self._handle_ipc, path=ipc_path)
-
-    def _not_ported(self, surface: str) -> None:
-        """Log once per daemon that a desktop surface is not ported yet."""
-        if surface not in self._logged_missing:
-            self._logged_missing.add(surface)
-            log.info("%s is not ported yet; continuing under IPC control",
-                     NOT_PORTED[surface])
 
     # -- recording control (parity: daemon.rs:1274-1308) ----------------------
 
@@ -297,21 +297,44 @@ class Daemon:
             self._chunk_id = 0
             self._chunk_mark = self.ring.current_position()
             self.tracker.reset_dedup()
-            self._session_id = self.server.open_session()
+            self._open_session()
             self._last_chunk_time = time.monotonic()
             self._last_activity = self._last_chunk_time
         log.info("Recording started (seq %d)", self._sequence)
         self._emit_recording_changed()
-        self._feedback()
+        self._feedback(started=True)
         return True
 
-    def _feedback(self) -> None:
-        """[feedback] section parity (config.example.toml:51-57): the beep
-        and desktop notification on recording start/stop go through the
-        host platform hooks, which are not ported yet."""
+    def _open_session(self) -> None:
+        """A new server session for the next recording (under self._lock).
+        The one before it is closed now if it has nothing in flight, else
+        drained first by `_drain_results` (F2)."""
+        old = self._session_id
+        if old is not None:
+            if self._in_flight.get(old):
+                self._draining.append((self.server, old))
+            else:
+                self._in_flight.pop(old, None)
+                self.server.close_session(old)
+        self._session_id = self.server.open_session()
+
+    def _feedback(self, started: bool) -> None:
+        """[feedback] section parity (config.example.toml:51-57): beep +
+        desktop notification on recording start/stop."""
         fb = getattr(self.config, "feedback", None)
-        if fb is not None and (fb.audio or fb.visual):
-            self._not_ported("feedback")
+        if fb is None:
+            return
+        try:
+            from openhush_tpu_torch.utils.platform_hosts import (
+                get_host_platform)
+            host = get_host_platform()
+            if fb.audio:
+                host.play_sound("start" if started else "stop")
+            if fb.visual:
+                host.notify("OpenHush",
+                            "Recording…" if started else "Recording stopped")
+        except Exception:  # noqa: BLE001 — feedback is never fatal
+            pass
 
     def stop_recording(self) -> bool:
         with self._lock:
@@ -328,7 +351,7 @@ class Daemon:
         self._last_activity = time.monotonic()
         log.info("Recording stopped (seq %d)", self._sequence)
         self._emit_recording_changed()
-        self._feedback()
+        self._feedback(started=False)
         return True
 
     def toggle_recording(self) -> bool:
@@ -378,6 +401,8 @@ class Daemon:
                     return False
                 server, self.server = self.server, None
                 self._session_id = None
+                self._in_flight.clear()
+                self._draining.clear()
             if hasattr(server, "stop"):
                 try:
                     server.stop()
@@ -422,7 +447,7 @@ class Daemon:
             self.vad_state.reset()
             self.vad_engine.reset()
             self.tracker.reset_dedup()
-            self._session_id = self.server.open_session()
+            self._open_session()
         log.info("Continuous dictation started (seq %d)", self._sequence)
         self._emit_recording_changed()
         return True
@@ -458,6 +483,9 @@ class Daemon:
                 max_pending=self.config.queue.max_pending,
                 strategy=self.config.queue.backpressure)
             if accepted:
+                with self._lock:
+                    self._in_flight[session_id] = \
+                        self._in_flight.get(session_id, 0) + 1
                 server.submit_window(
                     session_id, piece,
                     window_id=self._pack(self._sequence, self._chunk_id,
@@ -489,16 +517,30 @@ class Daemon:
 
     def run(self, max_runtime: Optional[float] = None,
             enable_tray: bool = True) -> None:
-        if getattr(self.config.api, "enabled", False):
-            raise NotImplementedError(
-                "[api] enabled = true: the REST API is not ported yet "
-                "(ROADMAP A9b); set it to false to run this daemon")
         write_pid_file()
         self._ipc.start()
+        # System tray (StatusNotifierItem; graceful when no SNI host —
+        # parity: daemon.rs:843-859 tray init warning path, gated by the
+        # --no-tray flag like main.rs:57-59).
+        self._tray = None
         if enable_tray:
-            self._not_ported("tray")
-        self._not_ported("hotkey")
-        self._not_ported("dbus")
+            try:
+                from openhush_tpu_torch.ui.tray_windows import create_tray
+                self._tray = create_tray()
+                log.info("System tray initialized")
+            except Exception as e:  # noqa: BLE001
+                log.info("System tray unavailable (%s); continuing", e)
+        self._start_hotkey()
+        self._start_api()
+        # D-Bus service (Linux desktop control plane; graceful when no
+        # session bus — parity: daemon.rs:877-886 D-Bus init warning path).
+        self._dbus = None
+        try:
+            from openhush_tpu_torch.utils.dbus import DbusService
+            self._dbus = DbusService(self._handle_dbus)
+            log.info("D-Bus service registered: org.openhush.Daemon1")
+        except Exception as e:  # noqa: BLE001
+            log.info("D-Bus unavailable (%s); socket/REST control only", e)
         self.source.start(self._on_audio)
         self._running = True
         if self.server is not None and hasattr(self.server, "start"):
@@ -536,9 +578,55 @@ class Daemon:
                         self.wake_detector is not None:
                     self._wake_tick()
                 self._drain_results()
+                if self._tray is not None and not self._tray_tick():
+                    break           # Quit picked from the tray menu
                 time.sleep(0.005)
         finally:
             self.shutdown()
+
+    def _start_hotkey(self) -> None:
+        """Global hotkey (push-to-talk / toggle / continuous by
+        config.hotkey.mode)."""
+        self._hotkey = None
+        try:
+            from openhush_tpu_torch.runtime.hotkey_hosts import (
+                create_hotkey_listener)
+            mode = self.config.hotkey.mode
+            if mode == "toggle":
+                on_press, on_release = self.toggle_recording, lambda: None
+            elif mode == "continuous":
+                on_press, on_release = self.start_continuous, lambda: None
+            else:  # push_to_talk
+                on_press, on_release = (self.start_recording,
+                                        self.stop_recording)
+            hk = create_hotkey_listener(self.config.hotkey.key, on_press,
+                                        on_release)
+            if hk.start():
+                self._hotkey = hk
+                log.info("Global hotkey %s active (%s mode)",
+                         self.config.hotkey.key, mode)
+        except (ValueError, OSError) as e:
+            log.warning("Hotkey disabled: %s", e)
+
+    def _start_api(self) -> None:
+        """The REST control plane, when [api] enabled."""
+        self._api = None
+        if not getattr(self.config.api, "enabled", False):
+            return
+        from openhush_tpu_torch.api.server import ApiServer
+        self._api = ApiServer(
+            host=self.config.api.host, port=self.config.api.port,
+            api_key_hash=self.config.api.api_key_hash,
+            cors_origins=self.config.api.cors_origins,
+            status_fn=lambda: dataclasses.asdict(self.status()),
+            command_fn=self._api_command)
+        try:
+            self._api.start()
+            log.info("REST API on %s:%d", self.config.api.host,
+                     self._api.port)
+        except OSError as e:
+            log.warning("REST API failed to start: %s", e)
+            self._api = None
 
     def shutdown(self) -> None:
         self._stop_event.set()
@@ -549,8 +637,73 @@ class Daemon:
             pass
         if self.server is not None and hasattr(self.server, "stop"):
             self.server.stop()
+        for surface in (self._api, self._hotkey, self._dbus, self._tray):
+            if surface is not None:
+                try:
+                    surface.stop()
+                except Exception:  # noqa: BLE001
+                    pass
         self._ipc.stop()
         remove_pid_file()
+
+    def _tray_tick(self) -> bool:
+        """Poll tray events + refresh the status icon; False = quit
+        requested (parity: daemon.rs:1251-1271)."""
+        from openhush_tpu_torch.ui.tray import TrayEvent, TrayStatus
+        ev = self._tray.try_recv()
+        if ev is TrayEvent.QUIT:
+            log.info("Quit requested from tray")
+            return False
+        if ev is TrayEvent.SHOW_PREFERENCES:
+            log.info("Opening preferences from tray")
+            self._spawn_preferences()
+        if self.state != DaemonState.IDLE:
+            status = TrayStatus.RECORDING
+        elif self.tracker.pending_count > 0:
+            status = TrayStatus.PROCESSING
+        else:
+            status = TrayStatus.IDLE
+        try:
+            self._tray.set_status(status)
+        except Exception:  # noqa: BLE001 — bus went away; keep running
+            pass
+        return True
+
+    def _spawn_preferences(self) -> None:
+        """Open the preferences UI as a detached subprocess (parity:
+        gui::spawn_preferences, src/gui/mod.rs:52 — the reference also
+        re-execs itself with a `preferences` argument). The port's
+        `preferences` is ROADMAP A9c and exits 2 naming it until then."""
+        import subprocess
+        try:
+            subprocess.Popen(
+                [sys.executable, "-m", "openhush_tpu_torch.cli",
+                 "preferences", "--open"],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                start_new_session=True)
+        except OSError as e:
+            log.warning("could not spawn preferences UI: %s", e)
+
+    def _handle_dbus(self, member: str):
+        """org.openhush.Daemon1 methods (parity: src/dbus/interface.rs:35)."""
+        if member == "StartRecording":
+            return ("b", self.start_recording())
+        if member == "StopRecording":
+            return ("b", self.stop_recording())
+        if member == "ToggleRecording":
+            return ("b", self.toggle_recording())
+        if member == "LoadModel":
+            return ("b", self.ensure_model())
+        if member == "UnloadModel":
+            return ("b", (True if self._server_factory is None
+                          else self.unload_model()))
+        if member == "GetStatus":
+            return ("s", json.dumps(dataclasses.asdict(self.status())))
+        if member == "GetQueueDepth":
+            return ("u", self.tracker.pending_count)
+        if member == "GetVersion":
+            return ("s", __version__)
+        raise ValueError(f"unknown method {member!r}")
 
     def _emit_recording_changed(self) -> None:
         if self._dbus is not None:
@@ -559,6 +712,11 @@ class Daemon:
                     self.state != DaemonState.IDLE)
             except Exception:  # noqa: BLE001
                 pass
+
+    def _api_command(self, action: str) -> bool:
+        return {"start": self.start_recording,
+                "stop": self.stop_recording,
+                "toggle": self.toggle_recording}[action]()
 
     def reload_config(self) -> None:
         """Reload hot-swappable config sections (SIGHUP). Model/audio-device
@@ -638,27 +796,61 @@ class Daemon:
             if self.wake_detector.detected(score):
                 log.info("Wake word detected (score %.2f) — starting "
                          "continuous dictation", score)
-                self._feedback()   # the audible cue: not ported yet
+                from openhush_tpu_torch.utils.platform_hosts import (
+                    get_host_platform)
+                host = get_host_platform()
+                host.play_sound("start")   # audible cue (parity: beep)
+                host.notify("OpenHush", "Listening…")
                 self.start_continuous()
                 return
 
     # -- results → output -----------------------------------------------------------
 
     def _drain_results(self) -> None:
+        # The earlier sessions first, in order (F2): each is polled until
+        # its last window is in, then closed; while one still waits, the
+        # later sessions' results stay on the server.
+        while True:
+            with self._lock:
+                if not self._draining:
+                    break
+                server, session_id = self._draining[0]
+            self._poll_session(server, session_id)
+            with self._lock:
+                done = not self._in_flight.get(session_id)
+                if done:
+                    self._draining.pop(0)
+                    self._in_flight.pop(session_id, None)
+            self._output_ready()
+            if not done:
+                return
+            server.close_session(session_id)
+            # As at the press that followed it: the next session's first
+            # text is not deduplicated against this one's last.
+            self.tracker.reset_dedup()
         # Snapshot against a concurrent unload (poll on a stopped server
         # only reads host-side queues, so a stale local ref is safe).
         server, session_id = self.server, self._session_id
         if session_id is None or server is None:
             return
+        self._poll_session(server, session_id)
+        self._output_ready()
+
+    def _poll_session(self, server, session_id: int) -> None:
         while True:
             res = server.poll(session_id)
             if res is None:
                 break
+            with self._lock:
+                if self._in_flight.get(session_id):
+                    self._in_flight[session_id] -= 1
             self._last_activity = time.monotonic()
             seq, chunk, final = self._unpack(res.window_id)
             self.tracker.add_result(ChunkResult(
                 text=res.text.strip(), sequence_id=seq, chunk_id=chunk,
                 is_final=final, duration_secs=0.0))
+
+    def _output_ready(self) -> None:
         self._batch_outputs = 0
         for ready in self.tracker.take_ready():
             if ready.text:
@@ -941,6 +1133,11 @@ def cmd_status(args: list[str]) -> int:
     print(f"Queue depth: {resp.get('queue_depth', 0)}")
     print(f"Preprocess failures: {resp.get('preprocess_failures', 0)}")
     return 0
+
+
+def cmd_record(args: list[str]) -> int:
+    from openhush_tpu_torch.runtime.recording import cmd_record as run
+    return run(args)
 
 
 def cmd_recording(args: list[str]) -> int:

@@ -1,7 +1,7 @@
 """Dispatch for the daemon-backed CLI subcommands, over the port's daemon
 module (counterpart of openhush_tpu/runtime/daemon_cli.py).
 
-`start`, `stop`, `status` and `recording` are ported; every other
+`start`, `stop`, `status`, `recording` and `record` are ported; every other
 subcommand of the reference CLI names the ROADMAP item that ports it and
 exits 2.
 """
@@ -19,7 +19,7 @@ SUBCOMMANDS = (
     ("stop", "Stop the daemon", None),
     ("status", "Show daemon status", None),
     ("recording", "Control recording (start/stop/toggle/continuous)", None),
-    ("record", "Record and transcribe long-form audio", "A9b"),
+    ("record", "Record and transcribe long-form audio", None),
     ("model", "Manage models", "A9c"),
     ("config", "Get/set configuration", "A9c"),
     ("device", "List/select audio devices", "A9c"),

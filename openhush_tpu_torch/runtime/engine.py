@@ -162,8 +162,12 @@ def _resolve_switches(quantize_weights, quantize_encoder, draft_model
     quantize_encoder, draft_model). quantize_weights: the argument, else
     OPENHUSH_INT8_WEIGHTS (a hard switch both ways), else the int8 rung;
     quantize_encoder: the argument, else int8_encoder_enabled();
-    draft_model: the argument, else OPENHUSH_DRAFT_MODEL, else None."""
-    draft_model = draft_model or os.environ.get("OPENHUSH_DRAFT_MODEL") or None
+    draft_model: the argument, else OPENHUSH_DRAFT_MODEL, else None; an
+    empty string asks for no draft whatever the variable says (`record`
+    builds its engine so: it never uses a draft)."""
+    if draft_model is None:
+        draft_model = os.environ.get("OPENHUSH_DRAFT_MODEL")
+    draft_model = draft_model or None
     if quantize_weights is None:
         env_w = os.environ.get("OPENHUSH_INT8_WEIGHTS")
         quantize_weights = (env_w == "1" if env_w is not None

@@ -6,10 +6,8 @@ method surface (StartRecording/StopRecording/ToggleRecording/LoadModel/
 UnloadModel/GetStatus/GetQueueDepth/GetVersion, src/dbus/service.rs:47)
 mapped onto the same socket commands.
 
-A copy of openhush_tpu/runtime/ipc.py for POSIX hosts. The Windows named
-pipe (runtime/named_pipe.py) is not ported yet: on win32 `create_server`
-and `IpcClient` raise NotImplementedError naming ROADMAP A9b, the slice
-that brings the pipe with the repair of its FIFO race.
+A copy of openhush_tpu/runtime/ipc.py: on win32 `create_server` and
+`IpcClient` route through the port's runtime/named_pipe.py.
 """
 
 from __future__ import annotations
@@ -25,16 +23,13 @@ COMMANDS = ("status", "stop", "load_model", "unload_model",
             "start_recording", "stop_recording", "toggle_recording",
             "start_continuous", "queue_depth", "version", "reload")
 
-_NO_PIPE = ("the Windows named-pipe IPC is not ported yet (ROADMAP A9b); "
-            "the port's daemon is controlled over a Unix socket")
-
-
 def create_server(handler: Callable[[dict], dict],
                   path: Optional[str] = None):
-    """Platform IPC server: Unix socket on POSIX (parity: src/ipc/mod.rs
-    routes unix_socket.rs vs named_pipe.rs; the pipe is ROADMAP A9b)."""
+    """Platform IPC server: Unix socket on POSIX, named pipe on Windows
+    (parity: src/ipc/mod.rs routes unix_socket.rs vs named_pipe.rs)."""
     if sys.platform == "win32":
-        raise NotImplementedError(_NO_PIPE)
+        from openhush_tpu_torch.runtime.named_pipe import NamedPipeServer
+        return NamedPipeServer(handler, path=path)
     return IpcServer(handler, path=path)
 
 
@@ -129,7 +124,8 @@ class IpcServer:
 class IpcClient:
     def __new__(cls, path: Optional[str] = None, timeout: float = 10.0):
         if sys.platform == "win32":
-            raise NotImplementedError(_NO_PIPE)
+            from openhush_tpu_torch.runtime.named_pipe import NamedPipeClient
+            return NamedPipeClient(path=path, timeout=timeout)
         return super().__new__(cls)
 
     def __init__(self, path: Optional[str] = None, timeout: float = 10.0):

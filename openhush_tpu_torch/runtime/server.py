@@ -654,6 +654,8 @@ class EngineServer:
         preprocess, mel, encode, int8 cross-KV, language logits. Entries
         land on _ready / _ready_first as (job, info, batched_xkv, row,
         the draft's batched_xkv or None)."""
+        log.debug("prep batch: windows %s",
+                  [job.window_id for job in jobs])
         try:
             self._prepare_many_inner(jobs)
         except Exception:

@@ -8,9 +8,8 @@ detection (sandbox.rs:178-236). All calls shell out to the standard desktop
 tools and degrade to no-ops headlessly.
 
 A copy of openhush_tpu/utils/platform.py (the active-window query that
-utils/context.py's per-app profiles read; the desktop notify). The host
-hooks of utils/platform_hosts.py (beeps, macOS and Windows clipboard)
-are not ported yet (ROADMAP A9b).
+utils/context.py's per-app profiles read; the desktop notify and beep);
+the macOS and Windows hooks are utils/platform_hosts.py's.
 """
 
 from __future__ import annotations

@@ -399,11 +399,13 @@ def test_ipc_load_unload_model_matches_reference(servers, tmp_path):
 
 def test_window_in_flight_at_the_next_start_is_lost_as_in_reference(
         servers, tmp_path):
-    """F2 (ROADMAP C, open; the port keeps the reference's behaviour): the
-    daemon drains only its current session, so a final window still in
-    flight when the next recording starts is never read: its text is
-    lost, the tracker keeps it pending, and idle unload is refused from
-    then on. Both daemons do exactly that."""
+    """F2 (ROADMAP C), repaired in the port: a final window still in flight
+    when the next recording starts. The JAX daemon drains only its current
+    session, so that window is never read: its text is lost, the tracker
+    keeps it pending and idle unload is refused from then on. The port's
+    daemon drains the earlier session first and closes it: both texts go
+    out in the order of the presses, nothing stays pending, the unload
+    goes through."""
     got = {}
     for side in SIDES:
         rec, outputs = Recorder(servers[side]), []
@@ -411,6 +413,7 @@ def test_window_in_flight_at_the_next_start_is_lost_as_in_reference(
         assert d.start_recording()
         d.ring.push(_audio(1.0, seed=4))
         assert d.stop_recording()             # the final window, in flight
+        first_session = d._session_id
         assert d.start_recording()            # the next press, before it ends
         _drain(d, rec, turns=40)
         d.ring.push(_audio(0.5, seed=5))
@@ -419,15 +422,58 @@ def test_window_in_flight_at_the_next_start_is_lost_as_in_reference(
         d._server_factory = lambda: servers[side]
         got[side] = dict(outputs=outputs, polled=[w for w, _, _ in
                                                   rec.results],
+                         texts={w: t for w, _, t in rec.results},
                          submitted=[w for w, _ in rec.submitted],
                          pending=d.tracker.pending_count,
+                         first_open=first_session in servers[
+                             side]._results,
                          unloaded=d.unload_model())
-    assert got["port"] == got["jax"]
-    port = got["port"]
-    assert len(port["submitted"]) == 2 and port["polled"] == \
-        port["submitted"][1:]
-    assert len(port["outputs"]) == 1
-    assert port["pending"] == 1 and not port["unloaded"]
+    ref, port = got["jax"], got["port"]
+    assert len(ref["submitted"]) == 2 and ref["polled"] == \
+        ref["submitted"][1:]
+    assert len(ref["outputs"]) == 1
+    assert ref["pending"] == 1 and not ref["unloaded"]
+    assert port["submitted"] == ref["submitted"]
+    assert port["polled"] == port["submitted"]            # in order
+    assert port["outputs"] == [port["texts"][port["submitted"][0]].strip(),
+                               ref["outputs"][0]]
+    assert port["texts"][port["submitted"][1]] == \
+        ref["texts"][ref["submitted"][1]]
+    assert port["pending"] == 0 and port["unloaded"]
+    assert not port["first_open"]                        # closed once drained
+
+
+def test_drain_holds_a_later_session_until_the_earlier_is_in(servers,
+                                                             tmp_path):
+    """F2's order: while the earlier session's window is still in flight,
+    a later session's finished window waits on the server; once the
+    earlier one is in, both go out, earlier first."""
+    server = servers["port"]
+    outputs = []
+    d = _make("port", server, tmp_path, outputs)
+    assert d.start_recording()
+    d.ring.push(_audio(1.0, seed=6))
+    assert d.stop_recording()
+    first = d._session_id
+    assert d.start_recording()
+    d.ring.push(_audio(0.5, seed=7))
+    assert d.stop_recording()
+    second = d._session_id
+    assert [sid for _, sid in d._draining] == [first]
+    # Decode both, without draining, then hand the earlier result back to
+    # the server's queue after the later one: the later arrives first.
+    for _ in range(200):
+        server.run_once()
+        if server._results[first].qsize() and server._results[second].qsize():
+            break
+    early = server._results[first].get_nowait()
+    q = server._results[first]
+    d._drain_results()
+    assert outputs == [] and d.tracker.pending_count == 2
+    q.put(early)
+    d._drain_results()
+    assert len(outputs) == 2 and d.tracker.pending_count == 0
+    assert d._draining == [] and first not in server._results
 
 
 def test_start_without_model_or_factory_fails_as_reference(tmp_path):
@@ -439,20 +485,109 @@ def test_start_without_model_or_factory_fails_as_reference(tmp_path):
         assert d._handle_ipc({"cmd": "load_model"}) == {"ok": False}
 
 
-def test_api_and_windows_pipe_are_not_ported_yet(servers, tmp_path,
-                                                 monkeypatch):
-    """[api] enabled raises NotImplementedError naming its ROADMAP item
-    before the PID file is written; the other surfaces only log."""
-    cfg = _config("port")
-    cfg.api.enabled = True
-    d = _make("port", servers["port"], tmp_path, [], cfg=cfg)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        d.run(max_runtime=1)
-    assert not os.path.exists(daemon.pid_file_path())
+def _http(port, method, path, key=None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method,
+                                 data=b"" if method == "POST" else None)
+    if key:
+        req.add_header("X-API-Key", key)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_api_enabled_serves_the_rest_api(weights_pair, tmp_path,
+                                         monkeypatch):
+    """[api] enabled = true: `run` starts the port's ApiServer (the
+    reference's routes), which answers /api/v1/health, refuses a request
+    without the key, and drives one push-to-talk cycle whose text is
+    output; every reply but status's preprocess_failures equals the JAX
+    daemon's, and the outputs are the same."""
+    from openhush_tpu.api.server import hash_api_key as jax_hash
+    from openhush_tpu_torch.api.server import ApiServer, hash_api_key
+    servers = _servers(weights_pair)
+    got = {}
+    for side in SIDES:
+        run_dir = tmp_path / side
+        run_dir.mkdir()
+        monkeypatch.setenv("XDG_RUNTIME_DIR", str(run_dir))
+        cfg = _config(side)
+        cfg.api.enabled, cfg.api.port = True, 0
+        cfg.api.api_key_hash = (jax_hash if side == "jax"
+                                else hash_api_key)("k")
+        outputs = []
+        d = _make(side, servers[side], run_dir, outputs, cfg=cfg)
+        t = threading.Thread(target=d.run, kwargs={"max_runtime": 60,
+                                                   "enable_tray": False},
+                             daemon=True)
+        t.start()
+        replies = []
+        try:
+            for _ in range(400):
+                if getattr(d, "_api", None) is not None:
+                    break
+                time.sleep(0.05)
+            api = d._api
+            assert api is not None
+            if side == "port":
+                assert isinstance(api, ApiServer)
+            port = api.port
+            replies.append(_http(port, "GET", "/api/v1/health"))
+            replies.append(_http(port, "GET", "/api/v1/status"))
+            replies.append(_http(port, "POST", "/api/v1/recording/start",
+                                 key="k"))
+            d.ring.push(_audio(1.0, seed=8))
+            replies.append(_http(port, "POST", "/api/v1/recording/stop",
+                                 key="k"))
+            for _ in range(1200):
+                if outputs and d.tracker.is_empty():
+                    break
+                time.sleep(0.05)
+            status = _http(port, "GET", "/api/v1/status", key="k")
+            if side == "port":
+                assert status[1].pop("preprocess_failures") == 0
+            replies.append(status)
+        finally:
+            d._stop_event.set()
+            t.join(timeout=60)
+        assert not t.is_alive()
+        got[side] = dict(replies=replies, outputs=outputs)
+    assert got["port"] == got["jax"]
+    port = got["port"]
+    assert port["replies"][0][0] == 200 and port["replies"][1][0] == 401
+    assert port["replies"][2] == (200, {"ok": True,
+                                        "message": "Recording started"})
+    assert port["replies"][4][1]["queue_depth"] == 0
+    assert len(port["outputs"]) == 1 and port["outputs"][0]
+
+
+def test_ipc_on_windows_routes_to_the_named_pipe(monkeypatch, tmp_path):
+    """`ipc.create_server` on win32 gives the port's NamedPipeServer (as
+    the reference's does), and a daemon built there answers over it."""
     from openhush_tpu_torch.runtime import ipc
+    from openhush_tpu_torch.runtime.named_pipe import (NamedPipeClient,
+                                                       NamedPipeServer)
     monkeypatch.setattr(ipc.sys, "platform", "win32")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ipc.create_server(lambda r: r)
+    server = ipc.create_server(lambda r: {"ok": True}, path=str(
+        tmp_path / "p.pipe"))
+    assert isinstance(server, NamedPipeServer)
+    d = daemon.Daemon(config.Config(), None, FileSource(_audio(0.5)),
+                      output=print, ipc_path=str(tmp_path / "d.pipe"),
+                      device="cpu")
+    assert isinstance(d._ipc, NamedPipeServer)
+    d._ipc.start()
+    try:
+        client = ipc.IpcClient(path=str(tmp_path / "d.pipe"))
+        assert isinstance(client, NamedPipeClient)
+        assert client.send("version") == {"ok": True,
+                                          "version": daemon.__version__}
+        assert client.send("status")["state"] == "idle"
+    finally:
+        d._ipc.stop()
 
 
 # ---------- F1: the preprocess fails loudly ----------
@@ -651,5 +786,58 @@ def test_entry_points_start_status_recording_stop(tmp_path, monkeypatch,
         proc.communicate()
     assert not pid_file.exists()
     assert run("stop")[0] == 1                         # nothing to stop
-    rc, _, err = run("record")
-    assert rc == 2 and "A9b" in err
+
+
+def _eot_checkpoint(path):
+    """A `test` checkpoint whose decoder gives token 1000, then EOT, in
+    every window: the final layer norm gives its bias alone, and the bias
+    points along both tokens' embeddings, a little more along EOT's, and
+    long enough to make both logits stand far above the rest. EOT is
+    suppressed at the first step (whisper's blank suppression), so 1000
+    comes first; the window is confident, and no ladder rung follows."""
+    tree = jax.tree.map(np.asarray, jax_model.init_params(
+        CFG, jax.random.PRNGKey(0), dtype=jnp.float32))
+    dec = tree["decoder"]
+    emb = dec["tok_emb"]
+    eot = WhisperTokenizer(CFG.n_langs).special.eot
+    unit = lambda t: emb[t] / np.linalg.norm(emb[t])
+    dec["ln_scale"] = np.zeros_like(dec["ln_scale"])
+    dec["ln_bias"] = 4000.0 * (1.1 * unit(eot) + unit(1000))
+    weights.save_npz(tree, path)
+
+
+def test_record_entry_point_on_a_file(tmp_path, monkeypatch, capsys):
+    """`record --source file:X --format srt -o OUT --device cpu` through
+    cli.main: it ends by itself (F3) and exits 0; its live SRT on stdout
+    and the file agree, in order, one cue a window with text."""
+    import signal
+    from openhush_tpu_torch import cli
+    from openhush_tpu_torch.audio.wav import save_wav
+    models = tmp_path / "models"
+    models.mkdir()
+    _eot_checkpoint(str(models / "test.npz"))
+    for k, v in (("OPENHUSH_CONFIG", _config_file(tmp_path)),
+                 ("OPENHUSH_MODEL_DIR", str(models))):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(WhisperTokenizer, "decode",
+                        lambda self, ids: " ".join(f"w{int(t)}"
+                                                   for t in ids))
+    wav, out = tmp_path / "talk.wav", tmp_path / "talk.srt"
+    save_wav(str(wav), _audio(10.0, seed=9))
+    handler = signal.getsignal(signal.SIGINT)
+    try:
+        rc = cli.main(["record", "--source", f"file:{wav}", "--format",
+                       "srt", "-o", str(out), "--device", "cpu"])
+    finally:
+        signal.signal(signal.SIGINT, handler)
+    live = capsys.readouterr().out
+    assert rc == 0
+    saved = out.read_text()
+    cues = [c for c in saved.strip().split("\n\n") if c]
+    assert len(cues) == 3                            # 0, 4.5 and 9 s
+    assert [c.split("\n")[1].split(" --> ")[0] for c in cues] == [
+        "00:00:00,000", "00:00:04,500", "00:00:09,000"]
+    assert all(c.split("\n")[2] == "w1000" for c in cues)
+    # Live cues are numbered in arrival order, the file's by start.
+    assert sorted(c.split("\n", 1)[1] for c in live.strip().split("\n\n")) \
+        == sorted(c.split("\n", 1)[1] for c in cues)

@@ -178,3 +178,22 @@ def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     name = _build.library_path().name
     assert name.startswith("libopenhush_kernels_") and name.endswith(".so")
     assert _build._lib is None
+
+
+def test_record_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch,
+                                               capsys):
+    """`record` resolves the card as `start` does: without CUDA (and
+    without --device cpu) it exits 1 naming it and builds nothing; its
+    session's diarizer defaults to CUDA too. The surfaces (REST API, named
+    pipe, hotkey, D-Bus, tray, host hooks) need no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from openhush_tpu_torch.runtime import recording
+    monkeypatch.setenv("OPENHUSH_CONFIG", str(tmp_path / "none.toml"))
+    wav = tmp_path / "a.wav"
+    wav.write_bytes(b"")
+    assert recording.cmd_record(["--source", f"file:{wav}"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recording.RecordingSession(
+            recording.RecordingConfig(enable_diarization=True), None, None)
