@@ -26,6 +26,18 @@ Differences from the reference, each with its reason:
   first, like the flat step, and attends under one ancestry mask that
   includes each beam's own new key (the reference's cache mask plus its
   identity block over the new keys beside the cache), on K4's beam mode.
+- Tensor parallelism is explicit (parallel/sharding.py): parameters from
+  `shard_params` hold a rank's columns of q, k, v, fc1 (and xq, xk, xv) and
+  rows of o, xo, fc2, and carry their mesh. A layer stack whose q_w holds
+  fewer columns than the model's width runs on the rank's heads (their
+  count from that width), with `copy_to_model` before each column-parallel
+  product and `reduce_from_model` after each row-parallel one, its bias
+  added once after the reduce. A bf16 partial product is reduced in fp32
+  (rounded once, as the single device's product is). Path decisions (the
+  flat step, the grouped beam step) read the global head count; only the
+  kernels' launch shapes take the local one. The reference's GSPMD inserts
+  these collectives itself. A whole stack (a draft, int8 weights) runs
+  with none.
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ from openhush_tpu_torch.ops.decode_attention import (attend_decode,
                                                      div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads_kv
+from openhush_tpu_torch.parallel.sharding import (copy_to_model,
+                                                  reduce_from_model)
 
 Params = dict
 NEG = torch.finfo(torch.float32).min       # mask fill, as jnp.finfo(f32).min
@@ -105,9 +119,52 @@ def _gelu_mode() -> str:
     return _GELU_MODE
 
 
-def _mlp(x, lp):
-    h = _gelu(_mm(x, lp["fc1_w"]) + lp["fc1_b"])
-    return _mm(h, lp["fc2_w"]) + lp["fc2_b"]
+def _mlp(x, lp, tp=None):
+    h = _gelu(_mm(copy_to_model(x, tp), lp["fc1_w"]) + lp["fc1_b"])
+    return _row(h, lp["fc2_w"], tp) + lp["fc2_b"]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _width(w) -> int:
+    """Output columns of a plain or int8 weight."""
+    return (w["q"] if isinstance(w, dict) else w).shape[-1]
+
+
+def _stack_tp(params: Params, layers: dict, width: int, n_head: int):
+    """(model group or None, local head count) of a layer stack: a stack
+    whose q_w holds all `width` columns is whole and runs with no
+    collective; a narrower one was cut by shard_params, and runs on its
+    share of the heads over the group its params carry."""
+    local = _width(layers["q_w"])
+    if local == width:
+        return None, n_head
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        raise ValueError(f"a layer stack holds {local} of {width} columns but "
+                         f"the parameters carry no mesh: cut them with "
+                         f"parallel.sharding.shard_params")
+    return mesh.model_group, n_head * local // width
+
+
+def _row(x, w, tp):
+    """A row-parallel product: x @ w, summed over the model group `tp`
+    (x holds the rank's input columns, w its rows). A bf16 rank's partial
+    sum is reduced in fp32 and rounded once; one that needs a gradient is
+    reduced in its own dtype. Without a group, `_mm`."""
+    if tp is None:
+        return _mm(x, w)
+    if x.dtype == torch.float32 or (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad)):
+        y = x @ w
+    elif x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32
+                     ).view(*x.shape[:-1], w.shape[-1])
+    else:
+        y = x.float() @ w.float()
+    return reduce_from_model(y, tp).to(x.dtype)
 
 
 def _unbind(w) -> list:
@@ -240,20 +297,23 @@ def encode(cfg: WhisperConfig, params: Params, mel: torch.Tensor
     x = x.transpose(1, 2)                                 # [B, T, d]
     x = x + enc["pos_emb"][None, : x.shape[1]].to(x.dtype)
 
-    block = _block_i8 if isinstance(enc["layers"]["q_w"], dict) else _block
+    tp, n_head = _stack_tp(params, enc["layers"], cfg.n_audio_state,
+                           cfg.n_audio_head)
+    int8 = isinstance(enc["layers"]["q_w"], dict)
     for lp in _layers(enc["layers"]):
-        x = block(x, lp, cfg.n_audio_head)
+        x = _block_i8(x, lp, n_head) if int8 else _block(x, lp, n_head, tp)
     return layer_norm(x, enc["ln_post_scale"], enc["ln_post_bias"])
 
 
-def _block(x, lp, n_head):
-    h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+def _block(x, lp, n_head, tp=None):
+    h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
     q = _split_heads(h @ lp["q_w"] + lp["q_b"], n_head)
     k = _split_heads(h @ lp["k_w"], n_head)
     v = _split_heads(h @ lp["v_w"] + lp["v_b"], n_head)
-    x = x + _merge_heads(flash_attention(q, k, v)) @ lp["o_w"] + lp["o_b"]
+    x = x + _row(_merge_heads(flash_attention(q, k, v)), lp["o_w"], tp
+                 ) + lp["o_b"]
     h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-    return x + _mlp(h, lp)
+    return x + _mlp(h, lp, tp)
 
 
 def _block_i8(x, lp, n_head):
@@ -318,17 +378,38 @@ def init_quant_kv_cache(cfg: WhisperConfig, batch: int,
     return QuantKVCache(vals(), scales(), vals(), scales())
 
 
-def _cross_kv_layers(params: Params, audio_features: torch.Tensor):
+def _cross_kv_layers(params: Params, audio_features: torch.Tensor, tp):
+    audio_features = copy_to_model(audio_features, tp)
     for lp in _layers(params["decoder"]["layers"]):
         yield (_mm(audio_features, lp["xk_w"]),
                _mm(audio_features, lp["xv_w"]) + lp["xv_b"])
 
 
+def _decoder_tp(cfg: WhisperConfig, params: Params):
+    """(model group or None, local head count) of the decoder stack."""
+    return _stack_tp(params, params["decoder"]["layers"], cfg.n_text_state,
+                     cfg.n_text_head)
+
+
+def _check_cache_heads(cfg: WhisperConfig, cache, n_head: int) -> None:
+    """A self-cache must hold the decoder's heads on this rank: a full-width
+    cache (init_kv_cache) beside sharded params is refused here rather than
+    at a shape error deep in a layer."""
+    width = n_head * (cfg.n_text_state // cfg.n_text_head)
+    if cache.k.shape[-1] != width:
+        raise ValueError(
+            f"the self-cache holds {cache.k.shape[-1]} columns, the decoder "
+            f"{n_head} heads ({width}) on this rank: cut a mesh's caches "
+            f"with parallel.sharding (cache_spec, shard_slot_state, "
+            f"shard_beam_state)")
+
+
 def compute_cross_kv(cfg: WhisperConfig, params: Params,
                      audio_features: torch.Tensor) -> KVCache:
     """Per-layer cross-attention K/V from the encoder output, once per 30 s
-    window, flat [L, B, T_audio, H*Dh]."""
-    ks, vs = zip(*_cross_kv_layers(params, audio_features))
+    window, flat [L, B, T_audio, H*Dh] (a rank's heads on a mesh)."""
+    tp, _ = _decoder_tp(cfg, params)
+    ks, vs = zip(*_cross_kv_layers(params, audio_features, tp))
     return KVCache(torch.stack(ks), torch.stack(vs))
 
 
@@ -338,15 +419,16 @@ def compute_cross_kv_quant(cfg: WhisperConfig, params: Params,
     reference's scan, so the layers' fp intermediates never all exist at
     once): one launch of the per-head quantize kernel writes layer l's K and
     V straight into slice l of the stacked cache."""
-    L, n_head = cfg.n_text_layer, cfg.n_text_head
+    tp, n_head = _decoder_tp(cfg, params)
+    L, dh = cfg.n_text_layer, cfg.n_text_state // cfg.n_text_head
     B, T = audio_features.shape[:2]
     dev = audio_features.device
-    vals = lambda: torch.empty(L, B, T, cfg.n_text_state, dtype=torch.int8,
+    vals = lambda: torch.empty(L, B, T, n_head * dh, dtype=torch.int8,
                                device=dev)
     scales = lambda: torch.empty(L, B, T, n_head, dtype=torch.float32,
                                  device=dev)
     out = QuantKVCache(vals(), scales(), vals(), scales())
-    for l, (k, v) in enumerate(_cross_kv_layers(params, audio_features)):
+    for l, (k, v) in enumerate(_cross_kv_layers(params, audio_features, tp)):
         quantize_heads_kv(k, v, n_head, (out.k[l], out.k_scale[l], out.v[l],
                                          out.v_scale[l]))
     return out
@@ -474,8 +556,9 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
     beam step (decode_beam_step, `anc_mask` [G, K, K*T]: the
     self-attention on K4's beam mode over each group's K cache rows)."""
     dec = params["decoder"]
-    B, S, HD = x.shape
-    n_head = cfg.n_text_head
+    B, S, _ = x.shape
+    tp, n_head = _decoder_tp(cfg, params)
+    _check_cache_heads(cfg, cache, n_head)
     max_len = cache.k.shape[2]
     if torch.is_tensor(pos):
         lengths = (pos + 1).to(torch.int32)
@@ -492,7 +575,7 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
     group = lambda t: None if t is None else t.view(B // cross_group, -1,
                                                     t.shape[-1])
     for l, lp in enumerate(_layers(dec["layers"])):
-        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+        h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
         q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
         if anc_mask is None:
@@ -501,16 +584,16 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
         else:
             attn = attend_decode_beam(group(q), group(k), group(v), anc_mask,
                                       n_head, ks=group(ks),
-                                      vs=group(vs)).view(B, S, HD)
-        x = x + _mm(attn, lp["o_w"]) + lp["o_b"]
-        h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+                                      vs=group(vs)).view(B, S, -1)
+        x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
+        h = copy_to_model(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]), tp)
         xq = _mm(h, lp["xq_w"]) + lp["xq_b"]
         xk, xv, xks, xvs = _kv_at(cross_kv, l)
         attn = attend_decode_pipelined(group(xq), xk, xv, None, n_head,
-                                       ks=xks, vs=xvs).view(B, S, HD)
-        x = x + _mm(attn, lp["xo_w"]) + lp["xo_b"]
+                                       ks=xks, vs=xvs).view(B, S, -1)
+        x = x + _row(attn, lp["xo_w"], tp) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, tp)
     return _logits(cfg, dec, x), cache
 
 
@@ -661,28 +744,30 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
     rows = row_pos.clamp(max=max_len - S)[:, None] + q_idx     # [B, S]
     batch = torch.arange(B, device=x.device)[:, None]
     dh = cfg.n_text_state // n_head
+    tp, n_head = _decoder_tp(cfg, params)        # the rank's heads from here
+    _check_cache_heads(cfg, cache, n_head)
 
     def write(buf, new):
         buf[batch, rows] = new
 
     for l, lp in enumerate(_layers(dec["layers"])):
-        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+        h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
         q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
         attn = _attend_views(
             q.view(B, S, n_head, dh), k.view(B, max_len, n_head, dh),
             v.view(B, max_len, n_head, dh), self_mask, ks=ks, vs=vs)
-        x = x + _mm(attn, lp["o_w"]) + lp["o_b"]
-        h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+        x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
+        h = copy_to_model(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]), tp)
         xq = _mm(h, lp["xq_w"]) + lp["xq_b"]             # [B, S, HD]
         xk, xv, xks, xvs = _kv_at(cross_kv, l)
         T_a = xk.shape[1]
         attn = _attend_views(
             xq.view(B, S, n_head, dh), xk.view(B, T_a, n_head, dh),
             xv.view(B, T_a, n_head, dh), None, ks=xks, vs=xvs)
-        x = x + _mm(attn, lp["xo_w"]) + lp["xo_b"]
+        x = x + _row(attn, lp["xo_w"], tp) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, tp)
     return _logits(cfg, dec, x), cache
 
 
@@ -697,26 +782,26 @@ def decode_teacher_forced(cfg: WhisperConfig, params: Params, cross_kv,
     training/distill.py share it."""
     dec = params["decoder"]
     B, S = tokens.shape
-    n_head = cfg.n_text_head
-    dh = cfg.n_text_state // n_head
+    dh = cfg.n_text_state // cfg.n_text_head
+    tp, n_head = _decoder_tp(cfg, params)
     T_a = cross_kv.k.shape[2]
     x = dec["tok_emb"][tokens]
     x = x + dec["pos_emb"][:S].to(x.dtype)
     causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
     heads = lambda t, T: t.view(B, T, n_head, dh)
     for l, lp in enumerate(_layers(dec["layers"])):
-        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+        h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
         attn = _attend_views(heads(h @ lp["q_w"] + lp["q_b"], S),
                              heads(h @ lp["k_w"], S),
                              heads(h @ lp["v_w"] + lp["v_b"], S), causal)
-        x = x + attn @ lp["o_w"] + lp["o_b"]
-        h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+        x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
+        h = copy_to_model(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]), tp)
         attn = _attend_views(heads(h @ lp["xq_w"] + lp["xq_b"], S),
                              heads(cross_kv.k[l], T_a),
                              heads(cross_kv.v[l], T_a), None)
-        x = x + attn @ lp["xo_w"] + lp["xo_b"]
+        x = x + _row(attn, lp["xo_w"], tp) + lp["xo_b"]
         h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
-        x = x + _mlp(h, lp)
+        x = x + _mlp(h, lp, tp)
     return _logits(cfg, dec, x)
 
 

@@ -34,6 +34,15 @@ Differences from the reference, each with its reason:
   decode calls; the decode step writes first (model.py), so the rows a
   rejected block leaves past a row's fill are overwritten before any query
   sees them.
+
+On a (data, model) mesh every rank runs these functions on its own block
+of the state (parallel.sharding.shard_slot_state: its data rank's slots,
+its heads of the big model's caches and cross-KV, the draft's whole) with
+sharded parameters: global slot s is local slot
+`sharding.local_slot(mesh, s, n_slots)` of one data rank, whose model ranks
+admit and step it together. They stay in lockstep: each chooses from the
+same logits (the model reduce hands every rank the same sums) with the
+same per-slot generators.
 """
 
 from __future__ import annotations

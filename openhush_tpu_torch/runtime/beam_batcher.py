@@ -43,6 +43,11 @@ Differences from the reference, each with its reason:
   beam's new key first and attends under its own bit, so a live step past
   the cache would not see its new key, where the reference's would
   (model.decode_beam_step).
+
+On a (data, model) mesh every rank runs `admit` and `step` on its block of
+the state (parallel.sharding.shard_beam_state: whole groups over `data`,
+heads over `model`), in lockstep across its model ranks, as
+runtime/batcher.py says.
 """
 
 from __future__ import annotations

@@ -26,6 +26,7 @@ import torch
 from openhush_tpu_torch.audio.wav import load_wav
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
 from openhush_tpu_torch.ops import mel as mel_ops
+from openhush_tpu_torch.parallel import sharding
 from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
 from openhush_tpu_torch.training import train
 from openhush_tpu_torch.training.train import IGNORE_ID
@@ -130,11 +131,16 @@ def finetune(cfg: WhisperConfig, params, dataset: WhisperDataset, *,
              epochs: int = 1, lr: float = 1e-5, mesh=None,
              log_every: int = 10):
     """Run fine-tuning; returns (params, losses). `params` are updated in
-    place, and the batches go to the device they lie on. A mesh (the
-    reference's dp × tp sharding) is not ported."""
+    place, and the batches go to the device they lie on. With a mesh
+    (parallel.sharding.create_mesh; every rank of it runs this), params
+    and batches shard dp × tp: the params are cut by shard_params unless
+    they already lie on this mesh, each data rank trains on its rows of
+    every batch, and the losses are the whole batches'."""
+    rows = slice(None)
     if mesh is not None:
-        raise NotImplementedError("multi-device fine-tuning (a mesh) is not "
-                                  "ported yet")
+        if getattr(params, "mesh", None) is not mesh:
+            params = sharding.shard_params(params, mesh)
+        rows = sharding.data_sharding(mesh, dataset.batch_size)
     device = train.leaves(params)[0].device
     steps_per_epoch = len(dataset.examples) // dataset.batch_size
     optimizer = train.make_optimizer(
@@ -142,7 +148,8 @@ def finetune(cfg: WhisperConfig, params, dataset: WhisperDataset, *,
         total_steps=max(2, steps_per_epoch * epochs))
     opt_state = optimizer.init(params)
     losses = []
-    put = lambda a: torch.from_numpy(a).to(device)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])
+                                     ).to(device)
     step_i = 0
     for _ in range(epochs):
         for batch in dataset.epoch():

@@ -8,8 +8,16 @@ warmup-cosine learning rate that starts at 0. Parameters keep the JAX
 package's nested dict layout (models/whisper/weights.py); the optimizer
 works over its leaves, in the order jax.tree.leaves gives (sorted keys).
 On the GPU the encoder's attention runs forward and backward on the flash
-kernels (ops/flash_attention.py). Sharding over a mesh (the reference's
-dp × tp) is not ported.
+kernels (ops/flash_attention.py).
+
+On a (data, model) mesh (parameters from parallel.sharding.shard_params,
+each rank fed its data rank's rows) the collectives GSPMD inserts in the
+reference are written out: the model's own (models/whisper/model.py), the
+loss over the reference's global denominator (max(n_valid, 1) over the
+whole batch, each rank's valid tokens summed over `data`), the gradients
+summed over `data`, and the clip's global norm over the whole model (each
+sharded leaf's squared norm summed over `model`, each replicated leaf
+counted once).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 from openhush_tpu_torch.models.whisper import model as whisper
 from openhush_tpu_torch.models.whisper import weights
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
+from openhush_tpu_torch.parallel import sharding
 
 IGNORE_ID = -100
 
@@ -42,14 +51,42 @@ def loss_fn(cfg: WhisperConfig, params, mel: torch.Tensor,
             tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean NLL of the targets, IGNORE_ID masked out, over max(n_valid, 1)
     tokens: an all-ignored batch gives 0 (F.cross_entropy would give NaN).
-    mel [B, n_mels, F], tokens and targets [B, S]."""
+    mel [B, n_mels, F], tokens and targets [B, S]. On a mesh, the rank's
+    rows' NLL over the whole batch's n_valid: the ranks' shares add up over
+    `data` to the loss."""
     logits = whisper.forward(cfg, params, mel, tokens)     # [B, S, Vp] fp32
     valid = targets != IGNORE_ID
     safe = torch.where(valid, targets, 0).long()
     logprobs = torch.log_softmax(logits, dim=-1)
     nll = -logprobs.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    n_valid = valid.sum()
+    data = _data_group(params)
+    if data is not None:
+        n_valid = sharding.all_reduce(n_valid, data)
+    return nll.sum() / n_valid.clamp(min=1)
+
+
+def _data_group(params):
+    mesh = getattr(params, "mesh", None)
+    return None if mesh is None else mesh.data_group
+
+
+def global_norm(grads: list[torch.Tensor], params) -> torch.Tensor:
+    """The gradients' global L2 norm over the whole model. On a mesh
+    (grads of sharded params, already summed over `data`) the sharded
+    leaves' squared norms are summed over `model` and each replicated leaf
+    is counted once."""
+    sq = lambda gs: sum(g.float().square().sum() for g in gs)
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        return torch.sqrt(sq(grads))
+    split = [sharding.MODEL_AXIS in s for s in leaves(params.specs)]
+    local = sq([g for g, c in zip(grads, split) if c])
+    whole = sq([g for g, c in zip(grads, split) if not c])
+    if mesh.model_group is not None:
+        local = sharding.all_reduce(local, mesh.model_group)
+    return torch.sqrt(local + whole)
 
 
 @dataclasses.dataclass
@@ -106,7 +143,7 @@ class Optimizer:
         """optax's update, added to the parameters in place one leaf at a
         time (no second copy of the model's updates is ever held); the
         count and every leaf's moments advance in place."""
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        gnorm = global_norm(grads, params)
         keep = gnorm < _MAX_NORM
         step = -np.float32(self.learning_rate(state.count))
         state.count += 1
@@ -157,15 +194,22 @@ def value_and_grad(cfg: WhisperConfig, params, mel, tokens, targets
                    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The loss and its gradient for every leaf (`leaves` order); a leaf the
     loss does not reach gets zeros, as jax.value_and_grad gives. Every leaf
-    is left requiring a gradient."""
+    is left requiring a gradient. On a mesh (mel, tokens and targets the
+    rank's data rows), both are the whole batch's: summed over `data`."""
     ps = leaves(params)
     for p in ps:
         p.requires_grad_(True)
     with torch.enable_grad():
         loss = loss_fn(cfg, params, mel, tokens, targets)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for g, p in zip(grads, ps)]
+    loss = loss.detach()
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, ps)]
+    data = _data_group(params)
+    if data is not None:
+        loss = sharding.all_reduce(loss, data)
+        grads = [sharding.all_reduce(g, data) for g in grads]
+    return loss, grads
 
 
 def train_step(cfg: WhisperConfig, optimizer: Optimizer, params,
@@ -173,7 +217,8 @@ def train_step(cfg: WhisperConfig, optimizer: Optimizer, params,
     """One training step → (params, opt_state, loss). The parameters and
     the optimizer state are updated in place and returned: the port's
     counterpart of the reference's donate_argnames, which lets XLA reuse
-    their buffers."""
+    their buffers. On a mesh, mel, tokens and targets are the rank's data
+    rows (value_and_grad)."""
     loss, grads = value_and_grad(cfg, params, mel, tokens, targets)
     optimizer.apply(params, grads, opt_state)
     return params, opt_state, loss

@@ -1,9 +1,11 @@
 """Model and fine-tuning checkpoints, as npz.
 
 The port of openhush_tpu/utils/checkpoint.py for the npz format only: the
-reference's Orbax directories (sharded restores onto a TPU mesh) stay the
-JAX package's format. `load_params` reads the npz that `model convert`
-writes; `save_train_state` and `load_train_state` keep a fine-tune's
+reference's Orbax directories stay the JAX package's format. `load_params`
+reads the npz that `model convert` writes, and with a mesh restores it onto
+the mesh as the reference's `load_orbax(shardings=)` does: each rank keeps
+only its shard on its device (the host reads the whole file: an npz member
+cannot be read in part); `save_train_state` and `load_train_state` keep a fine-tune's
 parameters, its optimizer state (training/train.py's `OptState`: `count`,
 `mu`, `nu`) and its step in one npz, flattened by `save_npz`. bf16 leaves
 are stored widened to fp32 (numpy has no bf16); `load_train_state` casts
@@ -19,6 +21,7 @@ import torch
 
 from openhush_tpu_torch.models.whisper.weights import (from_numpy_params,
                                                        load_npz, save_npz)
+from openhush_tpu_torch.parallel.sharding import shard_params
 
 
 def _host(node):
@@ -33,13 +36,18 @@ def _host(node):
     return np.asarray(node)
 
 
-def load_params(path: str) -> dict:
-    """A parameter tree (numpy arrays) from an npz file."""
+def load_params(path: str, mesh=None) -> dict:
+    """A parameter tree (numpy arrays) from an npz file; with a mesh
+    (parallel.sharding.create_mesh), this rank's shard of it
+    (sharding.shard_params: tensors on the rank's device)."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: Orbax checkpoints are the JAX "
             f"package's format; this package reads .npz files")
-    return load_npz(path)
+    params = load_npz(path)
+    if mesh is None:
+        return params
+    return shard_params(params, mesh)
 
 
 def save_train_state(path: str, params, opt_state, step: int) -> None:

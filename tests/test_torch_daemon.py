@@ -157,10 +157,10 @@ def _make(side, server, tmp_path, outputs, cfg=None, **kw):
     if side == "jax":
         return jax_daemon.Daemon(cfg, server, JaxFileSource(
             _audio(), realtime=False), output=outputs.append, ipc_path=sock,
-            chunk_interval=0.2, **kw)
+            **{"chunk_interval": 0.2, **kw})
     return daemon.Daemon(cfg, server, FileSource(_audio(), realtime=False),
                          output=outputs.append, ipc_path=sock,
-                         chunk_interval=0.2, device="cpu", **kw)
+                         device="cpu", **{"chunk_interval": 0.2, **kw})
 
 
 def _drain(d, server, turns=200):
@@ -521,7 +521,12 @@ def test_api_enabled_serves_the_rest_api(weights_pair, tmp_path,
         cfg.api.api_key_hash = (jax_hash if side == "jax"
                                 else hash_api_key)("k")
         outputs = []
-        d = _make(side, servers[side], run_dir, outputs, cfg=cfg)
+        # No chunk timer within the run: only the stop cuts the window, so
+        # both daemons submit the same one whatever the load (a timer that
+        # fired between the push and the stop on one side only cut the
+        # second's audio into two windows there).
+        d = _make(side, servers[side], run_dir, outputs, cfg=cfg,
+                  chunk_interval=3600.0)
         t = threading.Thread(target=d.run, kwargs={"max_runtime": 60,
                                                    "enable_tray": False},
                              daemon=True)

@@ -6,6 +6,7 @@ and `finetune` end to end on the CPU against the reference's losses (1e-4
 relative: fp32 through several AdamW steps)."""
 
 import os
+import types
 
 import jax
 import numpy as np
@@ -142,7 +143,12 @@ def test_finetune_matches_jax(corpus):
 
 
 def test_finetune_refuses_a_mesh(corpus):
+    """A mesh whose data axis does not divide the batch is refused before
+    any step (finetune on a mesh itself: tests/test_torch_parallel.py)."""
     ds = data.WhisperDataset(data.load_manifest(str(corpus / "manifest.tsv")),
                              CFG, batch_size=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        data.finetune(CFG, {}, ds, mesh=object())
+    mesh = types.SimpleNamespace(n_data=3, n_model=1, data_rank=0,
+                                 model_rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="a batch of 2 does not split over "
+                                         "a data axis of 3"):
+        data.finetune(CFG, {}, ds, mesh=mesh)
