@@ -1321,18 +1321,122 @@ def beam_masks(G: int, K: int, T: int, pos, gen) -> torch.Tensor:
     return torch.stack(masks).cuda()
 
 
+# K4's beam mode in its earlier mask design (a K*T-byte mask a query, all
+# K*T keys read): its times in this phase as PERF.md §6 records them (an
+# NVIDIA H100 80GB HBM3 at 700.00 W), named as recorded in the log beside
+# this run's (not in the kernels line, which holds only what this run
+# measured).
+BEAM_MASK_DESIGN_MS = {"": 0.0539, "oneshot_": 0.0575, "int8_": 0.0352,
+               "oneshot_int8_": 0.0464}
+
+
+def beam_holes(mask, pos, gen) -> torch.Tensor:
+    """A copy of ancestry masks [G, K, K*T] with a quarter of the (beam,
+    position) entries below each group's pos cleared at random and each
+    beam's own bit at pos kept: source-row tables with -1 entries under
+    the length, which random-parent ancestries never give."""
+    G, K, KT = mask.shape
+    T = KT // K
+    drop = ((torch.rand(G, K, T, generator=gen) < 0.25)
+            & (torch.arange(T) < pos[:, None, None])).to(mask.device)
+    return (mask.view(G, K, K, T) & ~drop[:, :, None, :]).view(G, K, KT)
+
+
+def check_beam_holes(da, quantize, G: int, T: int, K: int, H: int) -> None:
+    """K4's beam mode on tables with -1 entries below the length (beam_holes
+    of random-parent ancestries at pos = T - 2), bf16, int8 and fp32 (at
+    T=448 the fp32 rows of n = 447 positions stream through the ring: 112
+    passes against its 96). Every cache slot that no beam reads (its K, V
+    and, int8, ks and vs) is NaN, and a launch on an all-NaN cache under a
+    full table goes first, so that the slots of shared memory a skipped
+    position leaves stale hold NaN too: a slot or scale read or summed
+    where the table says -1 shows as a NaN. Held against the plain version
+    on the clean cache with phase 2's tolerances (bf16 1e-2; int8 1e-2 and
+    prob levels within one on <= 1e-3 of the visible keys; fp32 1e-5), and
+    no prob on a hidden (beam, position)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 92)
+    gen = torch.Generator().manual_seed(SEED + 93)
+    HD = H * 64
+    pos = torch.full((G,), T - 2)
+    rows = da.ancestry_rows(beam_holes(beam_masks(G, K, T, pos, gen), pos,
+                                       gen))
+    lengths = (pos + 1).to(device=dev, dtype=torch.int32)
+    t = torch.arange(T, device=dev)
+    seen = (rows >= 0) & (t < lengths[:, None, None])            # [G, K, T]
+    holes = int(((rows < 0) & (t < lengths[:, None, None])).sum())
+    check(holes > 0, f"beam_holes (G={G}, T={T}): -1 entries below the "
+                     f"length")
+    own = torch.arange(K, device=dev)
+    unread = ~((rows.long()[:, :, None, :] == own[:, None]) & seen[:, :, None]
+               ).any(1).view(G, K * T, 1)            # no beam reads the slot
+    hidden = ~seen[:, :, None, :].expand(G, K, H, T)
+    full = own.to(torch.int8).view(1, K, 1).expand(G, K, T).contiguous()
+    full_len = torch.full((G,), T, dtype=torch.int32, device=dev)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    q = rnd(G, K, HD).to(torch.bfloat16)
+    kf, vf = (rnd(G, K * T, HD).to(torch.bfloat16) for _ in range(2))
+    k8, v8 = (torch.empty(G, K * T, HD, dtype=torch.int8, device=dev)
+              for _ in range(2))
+    ks, vs = (torch.empty(G, K * T, H, device=dev) for _ in range(2))
+    quantize.quantize_heads_kv(kf, vf, H, (k8, ks, v8, vs))
+    n_vis = H * int(seen.sum())
+    nan = float("nan")
+    for mode, qm, k, v, kw in (
+            ("bf16", q, kf, vf, {}),
+            ("int8", q, k8, v8, dict(ks=ks, vs=vs)),
+            ("fp32", q.float(), kf.float(), vf.float(), {})):
+        poison = lambda x, where: (x.masked_fill(where, nan)
+                                   if x.is_floating_point() else x)
+        every = torch.ones_like(unread)
+        da.attend_decode_beam(qm, *(poison(x, every) for x in (k, v)), full,
+                              full_len, H, **{n: poison(x, every)
+                                              for n, x in kw.items()})
+        o, p = da.attend_decode_beam(
+            qm, *(poison(x, unread) for x in (k, v)), rows, lengths, H,
+            **{n: poison(x, unread) for n, x in kw.items()},
+            return_probs=True)
+        plain, p_plain = da.attend_decode_beam_plain(
+            qm, k, v, rows, lengths, H, **kw, return_probs=True)
+        torch.cuda.synchronize()
+        e = (o.float() - plain.float()).abs().max().item()
+        dp = (p - p_plain).abs()
+        if mode == "int8":
+            share = dp.ne(0).sum().item() / n_vis
+            ok = e <= 1e-2 and dp.max().item() <= 1 and share <= 1e-3
+            detail = (f"prob levels max diff {dp.max().item():.0f} on "
+                      f"{share:.2e} of visible keys")
+        else:
+            ok = e <= (1e-2 if mode == "bf16" else 1e-5)
+            detail = f"probs max_abs_err {dp.max().item():.3e}"
+        what = f"{mode}, G={G}, T={T}, K={K}, lengths {lengths.tolist()}"
+        log(f"K4 attend_decode_beam with {holes} -1 entries below the length "
+            f"({what}), unread slots NaN: max_abs_err {e:.3e}; {detail}")
+        check(ok, f"K4 beam mode with -1 entries below the length ({what}) "
+                  f"vs plain")
+        check(bool((p[hidden] == 0).all()),
+              f"K4 beam mode with -1 entries below the length ({what}): no "
+              f"prob on a hidden (beam, position)")
+
+
 def beam_bound(mask, HD: int, H: int, nb: int, all_keys: bool):
     """The least time for one beam-mode launch (K4): the keys it must read
-    (the union of a group's visible keys, or every one of its K*T keys)
-    with their K and V rows (nb bytes a value; int8 adds 2 x H fp32
-    scales), the mask, the bf16 query and output; 4 x HD operations for
-    each (query, visible key) pair (or every pair)."""
+    (the union of a group's visible keys) with their K and V rows (nb
+    bytes a value; int8 adds 2 x H fp32 scales), the source-row table (a
+    byte a (beam, position)) and the int32 lengths, the bf16 query and
+    output; 4 x HD operations for each (query, visible key) pair. mask:
+    the ancestry [G, K, K*T] the table came from. all_keys: the bound of
+    the earlier mask design, every one of a group's K*T keys for every
+    query under a byte of mask a key."""
     G, K, KT = mask.shape
-    keys = G * KT if all_keys else int(mask.any(dim=1).sum())
-    pairs = G * K * KT if all_keys else int(mask.sum())
+    io = 2 * G * K * HD * 2
     scales = 2 * H * 4 if nb == 1 else 0
-    return bound_ms(keys * (2 * HD * nb + scales) + mask.numel()
-                    + 2 * G * K * HD * 2, 4 * pairs * HD, "fp32")
+    if all_keys:
+        return bound_ms(G * KT * (2 * HD * nb + scales) + mask.numel() + io,
+                        4 * G * K * KT * HD, "fp32")
+    keys = int(mask.any(dim=1).sum())
+    return bound_ms(keys * (2 * HD * nb + scales) + G * KT + 4 * G + io,
+                    4 * int(mask.sum()) * HD, "fp32")
 
 
 def phase_beam_attention(da, quantize):
@@ -1340,12 +1444,18 @@ def phase_beam_attention(da, quantize):
     width (20 heads, Dh 64, K = 5 beams): G=4 groups over T=128-row caches
     (the beam server's step) and G=1 over T=448 (the one-shot layout at
     full context), each on a bf16 cache and on an int8 self-cache whose
-    levels and scales K3 wrote, under random-parent ancestry masks: against
-    the plain version (bf16 outputs 1e-2, as K4's self mode; int8 prob
-    levels within one on <= 1e-3 of the visible keys), and against itself
-    over two launches. Then each is timed over 32 per-layer copies (cold in
-    L2) beside its plain version, SDPA with the boolean mask (bf16) and two
-    bounds: the visible keys' bytes and all K*T keys' bytes."""
+    levels and scales K3 wrote (and, checked only, G=1/T=448 on an fp32
+    cache), under random-parent ancestry masks turned into the source-row
+    table by ancestry_rows (lengths pos + 1): against the plain version
+    (bf16 outputs 1e-2, as K4's self mode; int8 prob levels within one on
+    <= 1e-3 of the visible keys), against itself over two launches, and
+    with no prob on a hidden (beam, position). Then each is timed over 32
+    per-layer copies (cold in L2) beside its plain version, SDPA with the
+    boolean mask (bf16), the mask design's recorded time
+    (BEAM_MASK_DESIGN_MS, in the log only) and two bounds: the visible
+    keys' bytes with the table's, and the mask design's (all K*T keys with
+    the mask's bytes). Last, at each shape, check_beam_holes: tables with
+    -1 entries below the length, in bf16, int8 and fp32."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 90)
     gen = torch.Generator().manual_seed(SEED + 91)
@@ -1360,6 +1470,9 @@ def phase_beam_attention(da, quantize):
     for G, T, key in ((4, 128, ""), (1, 448, "oneshot_")):
         pos = torch.randint(PROMPT_LEN, T, (G,), generator=gen)
         mask = beam_masks(G, K, T, pos, gen)
+        rows = da.ancestry_rows(mask)
+        lengths = (pos + 1).to(device=dev, dtype=torch.int32)
+        hidden = (rows < 0)[:, :, None, :].expand(G, K, H, T)
         q = rnd(G, K, HD).to(torch.bfloat16)
         kf, vf = (rnd(G, K * T, HD).to(torch.bfloat16) for _ in range(2))
         k8, v8 = (torch.empty(G, K * T, HD, dtype=torch.int8, device=dev)
@@ -1369,7 +1482,7 @@ def phase_beam_attention(da, quantize):
         n_vis = H * int(mask.sum())
         for mode, (k, v, kw) in (("bf16", (kf, vf, {})),
                                  ("int8", (k8, v8, dict(ks=ks, vs=vs)))):
-            args = (q, k, v, mask, H)
+            args = (q, k, v, rows, lengths, H)
             (o, p), (o2, p2) = (da.attend_decode_beam(
                 *args, **kw, return_probs=True) for _ in range(2))
             plain, p_plain = da.attend_decode_beam_plain(
@@ -1389,27 +1502,33 @@ def phase_beam_attention(da, quantize):
                 detail = (f"int8 prob levels max diff {dp.max().item():.0f} "
                           f"on {share:.2e} of visible keys (tolerance 1 "
                           f"level on <= 1e-3)")
-            check(bool((p[~mask[:, :, None, :].expand_as(p)] == 0).all()),
-                  f"K4 beam mode ({what}): no prob on a hidden key")
-            log(f"K4 attend_decode_beam ({what}, ancestry masks from random "
-                f"parents, {int(mask.sum())} visible (query, key) pairs of "
-                f"{mask.numel()}): max_abs_err {e:.3e} (tolerance 1e-2: bf16 "
-                f"outputs); {detail}; the same bits over two launches")
+            check(bool((p[hidden] == 0).all()),
+                  f"K4 beam mode ({what}): no prob on a hidden (beam, "
+                  f"position)")
+            log(f"K4 attend_decode_beam ({what}, source-row tables from "
+                f"random-parent ancestries, {int(mask.sum())} visible "
+                f"(query, key) pairs of {mask.numel()}, lengths "
+                f"{lengths.tolist()}): max_abs_err {e:.3e} (tolerance 1e-2: "
+                f"bf16 outputs); {detail}; the same bits over two launches")
             check(tol_ok, f"K4 beam mode vs plain ({what})")
             layers = [(k.clone(), v.clone(), {n: t.clone()
                                               for n, t in kw.items()})
                       for _ in range(N_LAYER)]
             on_layers = lambda fn: rotate([
-                functools.partial(fn, q, kl, vl, mask, H, **kwl)
+                functools.partial(fn, q, kl, vl, rows, lengths, H, **kwl)
                 for kl, vl, kwl in layers])
             ms = time_ms(on_layers(da.attend_decode_beam), iters=2 * N_LAYER)
             plain_ms = time_ms(on_layers(da.attend_decode_beam_plain))
             nb = 2 if mode == "bf16" else 1
             b, by = beam_bound(mask, HD, H, nb, False)
             b_all = beam_bound(mask, HD, H, nb, True)[0]
-            line = (f"  K4 beam mode {what}: kernel {ms:.4f} ms, plain "
+            pre = key + ("" if mode == "bf16" else "int8_")
+            line = (f"  K4 beam mode {what}: kernel {ms:.4f} ms (the mask "
+                    f"design, recorded: {BEAM_MASK_DESIGN_MS[pre]:.4f} "
+                    f"ms), plain "
                     f"{plain_ms:.4f} ms, bound {b * 1e3:.3f} us ({by}, the "
-                    f"visible keys), {b_all * 1e3:.3f} us (all K*T keys)")
+                    f"visible keys and the table), {b_all * 1e3:.3f} us "
+                    f"(the mask design: all K*T keys and the mask)")
             if mode == "bf16":
                 heads = lambda x: x.view(G, -1, H, D).transpose(1, 2)
                 lib = sdpa(heads(q), heads(kf), heads(vf),
@@ -1424,7 +1543,6 @@ def phase_beam_attention(da, quantize):
                          f"ms (max_abs_err vs plain {lib_err:.3e})")
             log(line)
             del layers
-            pre = key + ("" if mode == "bf16" else "int8_")
             if pre == "":
                 row.update(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                            bound_ms=b, bound_by=by, library_ms=lib_ms,
@@ -1435,6 +1553,21 @@ def phase_beam_attention(da, quantize):
                             pre + "all_keys_bound_ms": b_all})
                 if mode == "bf16":
                     row[pre + "library_ms"] = lib_ms
+        if T == 448:      # fp32 (an fp32 engine's beam): rows of 256 B, in
+            qf, kf32, vf32 = (x.float() for x in (q, kf, vf))   # flight whole
+            o, o2 = (da.attend_decode_beam(qf, kf32, vf32, rows, lengths, H)
+                     for _ in range(2))   # at this n (the ring: check_beam_holes)
+            plain = da.attend_decode_beam_plain(qf, kf32, vf32, rows,
+                                                lengths, H)
+            e = (o - plain).abs().max().item()
+            log(f"K4 attend_decode_beam (fp32, G={G}, T={T}, K={K}, lengths "
+                f"{lengths.tolist()}): max_abs_err {e:.3e} (tolerance 1e-5: "
+                f"fp32 sums reordered, as K4's self mode on 448 rows); the "
+                f"same bits over two launches")
+            check(torch.equal(o, o2) and e <= 1e-5,
+                  f"K4 beam mode (fp32, G={G}, T={T}) vs plain, and over two "
+                  f"launches")
+        check_beam_holes(da, quantize, G, T, K, H)
     return [row]
 
 
@@ -2352,8 +2485,12 @@ def busy_steps(srv, n_busy: int, seed: int, unit: str) -> None:
             f"{traced * 1e3:.1f} ms wall, device busy {busy / 1e3:.2f} ms = "
             f"{busy / 1e3 / srv.inner_steps:.2f} ms/step, device idle share "
             f"{1 - busy / 1e6 / traced:.3f}")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+        # The ten longest, then the port's own kernels among the rest.
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+        for name, us in ranked[:10] + [
+                (n, us) for n, us in ranked[10:]
+                if n.startswith("void (anonymous namespace)::")]:
+            log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:100]}")
 
 
 def phase_serving(eng, longform, whisper, counters, n_layer,
@@ -3416,6 +3553,17 @@ def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
         out["int8_self" if int8_self else "server"] = launches[
             "attend_decode_beam"]
 
+    # The source-row table's work a step (decode_beam_step's ancestry_rows
+    # and the lengths' clamp and cast), at the 4-group server's shape.
+    from openhush_tpu_torch.ops.decode_attention import ancestry_rows
+    anc = whisper.beam_ancestry(BEAM_GROUPS, BEAM, 128, PROMPT_LEN, "cuda")
+    pos = torch.full((BEAM_GROUPS,), 64, device="cuda")
+    host, busy = host_and_device(lambda: (ancestry_rows(anc), (pos + 1).clamp(
+        max=128).to(torch.int32)), 1000)
+    busy = "not measured" if busy is None else f"{busy:.4f} ms"
+    log(f"  the source-row table a beam step ({BEAM_GROUPS} groups, 128 "
+        f"rows): {host:.4f} ms host wall, {busy} device busy (1000 calls)")
+
     # One window: a 1-group server against the one-shot beam on the
     # server's own prepared cross-KV.
     srv = longform.make_server(cfg, params, tok, n_files=1, n_slots=1,
@@ -4368,6 +4516,10 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
             text=polled[w][1].text.strip(), sequence_id=seq, chunk_id=chunk,
             is_final=final, duration_secs=0.0))
         replay += [r.text for r in tracker.take_ready() if r.text]
+    if emitted != replay:
+        log(f"  the daemon's outputs {emitted}\n  the tracker's replay, in "
+            f"poll order {replay}\n  the windows (seq, chunk, final, poll "
+            f"s, text): {[(*d._unpack(w), round(polled[w][0] - t_drive, 3), polled[w][1].text.strip()) for w in sorted(polled, key=lambda w: polled[w][0])]}")
     check(emitted == replay, "the daemon's outputs == the tracker's replay "
           "of its windows' texts")
 

@@ -51,21 +51,26 @@
 // rows stream through a ring of 4 stages, V following K into the same
 // slots. The sums run in a fixed order: the same bits on every launch.
 //
-// K4's beam mode (a mask pointer) is the grouped beam step's
+// K4's beam mode (a source-row table) is the grouped beam step's
 // self-attention, the function of the JAX model's _attend_decode_flat_beam
 // (XLA einsums there, no Pallas kernel): the K beams of a group attend over
-// the group's K cache rows seen as one row of K*T keys (a free view of the
-// row-contiguous [G*K, T, H*64] cache), and query s sees key j iff
-// mask[b, s, j], the beam's ancestry. The caller writes each beam's new key
-// first and sets its own bit, so the mask is the reference's cache mask plus
-// its identity block over the new keys. This first version reads all K*T
-// keys and masks the scores: a masked key scores -inf (exp exactly 0) and
-// adds exact zeros to the value sums. At large-v3's K = 5 and T = 448 that
-// is 2240 keys, streamed through the ring, K times the keys a query can see
-// at most and many more early in a window (PERF.md has both bounds). The
-// mask row is copied to shared memory while the rows are in flight. Reading
-// only the visible rows (a per-position source-row table) is a later
-// redesign.
+// the group's K cache rows of T positions (a free view [G, K*T, H*64] of the
+// row-contiguous [G*K, T, H*64] cache) under each beam's ancestry. The
+// ancestry has at most one writer row for each (beam, position), so the
+// caller turns it once a step into a table rows [G, K, T] (int8: that row,
+// or -1) and passes each group's length n = pos + 1: key t < n of query
+// (g, i) is position t of cache row g*K + rows[g, i, t], flat key
+// rows*T + t of the view; a -1 entry is neither loaded nor counted (it
+// scores -inf, as the reference's finfo(f32).min fill gives) and keys at
+// t >= n are never read. A query thus reads at most T rows, not K*T, and
+// the beam mode is K4's direct path over positions: bf16 and int8 K and V
+// of T <= 448 positions go in flight whole with one wait, an fp32 cache of
+// 448 streams through the ring. The table row must be read before the rows'
+// addresses exist: each thread asks for its (at most four) bytes of it at
+// entry beside the length, which the self mode waits on already, and stages
+// them in shared memory (T bytes, one CTA barrier), so the dependent trip
+// costs the barrier and at most one more round trip. The sums run over
+// positions t, in K4's fixed order.
 //
 // K5 (the int8 cross-attention, T = 1500): a CTA streaming 1500 keys alone
 // keeps too few bytes in flight (at batch 1 that is 20 CTAs on 132 SMs),
@@ -119,6 +124,7 @@ constexpr int HEAD_DIM = 64;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int STAGES = 4;                     // K4: the ring's groups of passes
+constexpr int TAB_LOADS = 4;                  // K4's beam mode: table bytes a thread
 constexpr int PASS_BYTES = THREADS * 16;      // K4: a pass, 16 B per thread
 constexpr int CLUSTER = 8;                    // K5: CTAs per query
 constexpr size_t MAX_SMEM = 200 * 1024;       // K4: dynamic shared memory
@@ -267,40 +273,60 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // K4's dynamic shared memory: a ring of `ring` passes of rows (a pass is
 // one 16-byte piece per thread; K's rows, then V's, through the same
 // slots), then every key's score and, in QUANT mode, every key's ks and vs,
-// then, in the beam mode, the query's row of the mask (a byte a key).
-template <bool QUANT> __host__ __device__ constexpr size_t direct_tail(int T, bool masked) {
-  return (size_t)T * sizeof(float) * (QUANT ? 3 : 1) + (masked ? (size_t)(T + 15) / 16 * 16 : 0);
+// then, in the beam mode, the query's row of the source-row table (a byte a
+// position).
+template <bool QUANT> __host__ __device__ constexpr size_t direct_tail(int T, bool beam) {
+  return (size_t)T * sizeof(float) * (QUANT ? 3 : 1) + (beam ? (size_t)(T + 15) / 16 * 16 : 0);
 }
 // The ring's passes for a cache of T rows: K and V of all T rows, rounded
 // up to whole stages, or as many whole stages as MAX_SMEM holds beside the
 // scores (then the rows stream through the ring). Fewer than STAGES: no fit.
-template <typename KV, bool QUANT> int ring_passes(int T, bool masked) {
+template <typename KV, bool QUANT> int ring_passes(int T, bool beam) {
   using L = Layout<KV>;
   const long long need = 2LL * ((T + L::RPP - 1) / L::RPP);
   const long long want = (need + STAGES - 1) / STAGES * STAGES;
-  const long long room = ((long long)MAX_SMEM - (long long)direct_tail<QUANT>(T, masked)) /
+  const long long room = ((long long)MAX_SMEM - (long long)direct_tail<QUANT>(T, beam)) /
                          PASS_BYTES / STAGES * STAGES;
   return (int)(want < room ? want : room);
 }
 
+// K4: the index of key t < n among the keys of its row (t itself) or, in
+// the beam mode, of its group (position t of the group's cache row tab[t]:
+// tab[t] * T + t); -1 for a key that is not read (t >= n, or tab[t] = -1).
+template <bool BEAM>
+__device__ __forceinline__ long long key_index(const int8_t* tab, int t, int n, int T) {
+  if (t >= n) return -1;
+  if constexpr (BEAM) {
+    const int r = tab[t];
+    return r < 0 ? -1 : (long long)r * T + t;
+  }
+  return t;
+}
+template <bool BEAM>
+__device__ __forceinline__ bool visible(const int8_t* tab, int t, int n) {
+  return t < n && (!BEAM || tab[t] >= 0);
+}
+
 // K4: asks for this thread's pieces of passes [p0, p1) (pass p < kp: K's
 // rows, else V's) in consecutive slots from `slot`, and the ks of its K
-// rows in QUANT mode, as one cp.async group. Returns whether the group
-// holds a copy. (No division here or in the loops that call it: at a few
-// us a launch, a division's chain of dependent instructions shows.)
-template <typename KV, bool QUANT>
+// rows in QUANT mode, as one cp.async group; a key that is not read leaves
+// its slot as it was. Returns whether the group holds a copy. (No division
+// here or in the loops that call it: at a few us a launch, a division's
+// chain of dependent instructions shows.)
+template <typename KV, bool QUANT, bool BEAM>
 __device__ __forceinline__ bool issue_passes(int4* slot, float* kss, const KV* kb, const KV* vb,
-                                             const float* ksb, int p0, int p1, int kp, int n,
-                                             int HD, int H) {
+                                             const float* ksb, const int8_t* tab, int p0, int p1,
+                                             int kp, int n, int T, int HD, int H) {
   using L = Layout<KV>;
   const int c = threadIdx.x % L::CHUNKS, r0 = threadIdx.x / L::CHUNKS;
   bool copied = false;
   for (int p = p0; p < p1; ++p, slot += THREADS) {
     const bool is_k = p < kp;
     const int t = (is_k ? p : p - kp) * L::RPP + r0;
-    if (t < n) {
-      cp_async16(slot + threadIdx.x, (is_k ? kb : vb) + (long long)t * HD + c * L::VALS);
-      if (QUANT && is_k && c == 0) cp_async4(kss + t, ksb + (long long)t * H);
+    const long long key = key_index<BEAM>(tab, t, n, T);
+    if (key >= 0) {
+      cp_async16(slot + threadIdx.x, (is_k ? kb : vb) + key * HD + c * L::VALS);
+      if (QUANT && is_k && c == 0) cp_async4(kss + t, ksb + key * H);
       copied = true;
     }
   }
@@ -310,15 +336,16 @@ __device__ __forceinline__ bool issue_passes(int4* slot, float* kss, const KV* k
 
 // K4, streaming: moves to the next pass's slot; once a stage has been read,
 // asks for stage `next` into its slots.
-template <typename KV, bool QUANT>
+template <typename KV, bool QUANT, bool BEAM>
 __device__ __forceinline__ void next_pass(int4*& cur, int& in_stage, int& next, unsigned& held,
                                           int4* slots, int span, int sp, int P, float* kss,
-                                          const KV* kb, const KV* vb, const float* ksb, int kp,
-                                          int n, int HD, int H) {
+                                          const KV* kb, const KV* vb, const float* ksb,
+                                          const int8_t* tab, int kp, int n, int T, int HD, int H) {
   cur += THREADS;
   if (++in_stage == sp) {
-    const bool copied = issue_passes<KV, QUANT>(cur - sp * THREADS, kss, kb, vb, ksb, next * sp,
-                                                min((next + 1) * sp, P), kp, n, HD, H);
+    const bool copied = issue_passes<KV, QUANT, BEAM>(cur - sp * THREADS, kss, kb, vb, ksb, tab,
+                                                      next * sp, min((next + 1) * sp, P), kp, n,
+                                                      T, HD, H);
     held = (held << 1) | (copied ? 1u : 0u);
     ++next;
     in_stage = 0;
@@ -328,18 +355,19 @@ __device__ __forceinline__ void next_pass(int4*& cur, int& in_stage, int& next, 
 
 // K4: the score of key t from this thread's piece `ch` of its row (every
 // lane calls it; lane c == 0 of the row writes sc[t]); returns the running
-// max of the scores this thread wrote. In the beam mode (mk: the query's
-// row of the mask in shared memory) a key the mask hides scores -inf, so
-// its exp is exactly 0, as the reference's finfo(f32).min fill gives, and
-// it does not enter the max.
-template <typename KV, bool QUANT>
+// max of the scores this thread wrote. In the beam mode (tab: the query's
+// row of the table in shared memory) a position with no source row scores
+// -inf, so its exp is exactly 0, as the reference's finfo(f32).min fill
+// gives, and it does not enter the max.
+template <typename KV, bool QUANT, bool BEAM>
 __device__ __forceinline__ float score_pass(const int4& ch, int t, int n, int c, const float* qw,
                                             const int* q8, const float* kss, float qscale,
-                                            float sm_scale, const unsigned char* mk, float* sc,
+                                            float sm_scale, const int8_t* tab, float* sc,
                                             float lmax) {
-  const float dot = piece_dot<KV, QUANT>(t < n ? ch : make_int4(0, 0, 0, 0), c, qw, q8);
+  const bool vis = visible<BEAM>(tab, t, n);
+  const float dot = piece_dot<KV, QUANT>(vis ? ch : make_int4(0, 0, 0, 0), c, qw, q8);
   if (c == 0 && t < n) {
-    if (mk && !mk[t]) {
+    if (!vis) {
       sc[t] = -INFINITY;
     } else {
       const float score = score_of<QUANT>(dot, kss + t, qscale, sm_scale);
@@ -351,11 +379,12 @@ __device__ __forceinline__ float score_pass(const int4& ch, int t, int n, int c,
 }
 
 // K4: adds prob sc[t] times this thread's piece `ch` of V's row t to its
-// column sums (int32 in QUANT mode).
-template <typename KV, bool QUANT, typename Acc>
+// column sums (int32 in QUANT mode). A key that was not read is skipped:
+// its slot holds stale bytes, which a prob of 0 need not cancel (0 * NaN).
+template <typename KV, bool QUANT, bool BEAM, typename Acc>
 __device__ __forceinline__ void value_pass(Acc (&acc)[Layout<KV>::VALS], const int4& ch, int t,
-                                           int n, const float* sc) {
-  if (t >= n) return;
+                                           int n, const int8_t* tab, const float* sc) {
+  if (!visible<BEAM>(tab, t, n)) return;
   if constexpr (QUANT) {
     const int p8 = (int)sc[t];
 #pragma unroll
@@ -405,12 +434,15 @@ __device__ __forceinline__ void wait_stage(unsigned held) {
 // per pass): their scores, exps and probs, so the softmax needs one CTA
 // barrier per quantity (max, sum and, int8, max(p*vs)), and the value sum
 // one more. tools/torch_k4_probe.py times the launch and each part.
-template <typename KV, typename QO, bool QUANT>
+// BEAM: the beam mode (see the header): row b is a group of S beams, query
+// s its beam s, T its positions, and key t of query s is position t of the
+// group's cache row rows[b, s, t].
+template <typename KV, typename QO, bool QUANT, bool BEAM>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
                         const KV* __restrict__ v, const float* __restrict__ ks,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
-                        int len_default, int causal, const unsigned char* __restrict__ mask,
+                        int len_default, int causal, const int8_t* __restrict__ rows,
                         QO* __restrict__ out, float* __restrict__ probs, int S, int H, int T,
                         float sm_scale, int ring) {
   using L = Layout<KV>;
@@ -421,7 +453,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   float* sc = reinterpret_cast<float*>(smem + (size_t)ring * PASS_BYTES);   // [T]
   float* kss = sc + T;                               // [T], QUANT
   float* vss = kss + T;                              // [T], QUANT
-  unsigned char* mk = reinterpret_cast<unsigned char*>(sc + T * (QUANT ? 3 : 1));  // [T], beam
+  int8_t* tab = reinterpret_cast<int8_t*>(sc + T * (QUANT ? 3 : 1));   // [T], BEAM
   __shared__ float qs[WARPS][HEAD_DIM];              // each warp's copy
   __shared__ int q8w[WARPS][HEAD_DIM / 4];
   __shared__ float red_max[WARPS], red_sum[WARPS], red_pv[WARPS];
@@ -430,6 +462,17 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
   const int HD = H * HEAD_DIM;
   const long long qo_off = ((long long)b * S + s) * HD + h * HEAD_DIM;
+  // The beam mode: this thread's bytes of the query's table row, asked for
+  // beside the length (one trip for both; T <= TAB_LOADS * THREADS).
+  int tv[BEAM ? TAB_LOADS : 1];
+  if constexpr (BEAM) {
+    const int8_t* trow = rows + ((long long)b * S + s) * T;
+#pragma unroll
+    for (int j = 0; j < TAB_LOADS; ++j) {
+      const int t = threadIdx.x + j * THREADS;
+      tv[j] = t < T ? trow[t] : -1;
+    }
+  }
   int n = (lengths ? lengths[b] : len_default) + (causal ? s : 0);
   n = n < T ? n : T;
   float* pb = probs ? probs + (((long long)b * S + s) * H + h) * T : nullptr;
@@ -439,7 +482,7 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
       for (int t = threadIdx.x; t < T; t += THREADS) pb[t] = 0.f;
     return;
   }
-  const long long row0 = (long long)b * T;
+  const long long row0 = (long long)b * (BEAM ? S : 1) * T;   // the row's (group's) keys
   const KV* kb = k + row0 * HD + h * HEAD_DIM;
   const KV* vb = v + row0 * HD + h * HEAD_DIM;
   const float* ksb = QUANT ? ks + row0 * H + h : nullptr;
@@ -449,6 +492,14 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
 
   // -- the query's load first; then every pass of the ring in flight -------
   const float qa = load_f32(q + qo_off + lane), qb = load_f32(q + qo_off + lane + 32);
+  if constexpr (BEAM) {             // the table row, before any address
+#pragma unroll
+    for (int j = 0; j < TAB_LOADS; ++j) {
+      const int t = threadIdx.x + j * THREADS;
+      if (t < T) tab[t] = (int8_t)tv[j];
+    }
+    __syncthreads();
+  }
   const int kp = (n + L::RPP - 1) / L::RPP;          // passes of K, and of V
   const int P = 2 * kp;
   // Every pass in flight from the entry, one group (`whole`); else STAGES
@@ -460,9 +511,12 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   if constexpr (QUANT)              // the vs of this lane's softmax entries,
     for (int j = lane; j < kp * RW; j += 32) {      // in the first group
       const int t = (j / RW) * L::RPP + warp * RW + j % RW;
-      if (t < n) {
-        cp_async4(vss + t, vsb + (long long)t * H);
+      const long long key = key_index<BEAM>(tab, t, n, T);
+      if (key >= 0) {
+        cp_async4(vss + t, vsb + key * H);
         vs_copied = true;
+      } else if (t < n) {
+        vss[t] = 0.f;               // not read (beam mode): its prob is 0
       }
     }
   // A group with no copy is never pending, so cp.async.wait_group counts
@@ -470,12 +524,13 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   // whether the i-th most recent stage gave this thread any.
   unsigned held = 0;
   if (whole) {
-    issue_passes<KV, QUANT>(slots, kss, kb, vb, ksb, 0, P, kp, n, HD, H);
+    issue_passes<KV, QUANT, BEAM>(slots, kss, kb, vb, ksb, tab, 0, P, kp, n, T, HD, H);
   } else {
 #pragma unroll
     for (int st = 0; st < STAGES; ++st) {
-      const bool copied = issue_passes<KV, QUANT>(slots + st * sp * THREADS, kss, kb, vb, ksb,
-                                                  st * sp, min((st + 1) * sp, P), kp, n, HD, H);
+      const bool copied = issue_passes<KV, QUANT, BEAM>(slots + st * sp * THREADS, kss, kb, vb,
+                                                        ksb, tab, st * sp, min((st + 1) * sp, P),
+                                                        kp, n, T, HD, H);
       held = (held << 1) | (copied || (st == 0 && vs_copied) ? 1u : 0u);
     }
   }
@@ -483,14 +538,6 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   // stage to ask for once this one has been read (into the same slots).
   int4* cur = slots;
   int in_stage = 0, next = STAGES;
-  // The beam mode: the query's row of the mask, into shared memory while
-  // the rows are in flight (one trip to memory, under theirs).
-  if (mask) {
-    const unsigned char* mrow = mask + ((long long)b * S + s) * T;
-    for (int t = threadIdx.x; t < n; t += THREADS) mk[t] = mrow[t];
-    __syncthreads();
-  }
-  const unsigned char* mvis = mask ? mk : nullptr;
 
   // -- the query, in this warp's copy: fp32 and, QUANT, its int8 levels:
   //    qscale = max(max|q_h|, 1e-10) / 127;  q8 = clip(rint(q_h / qscale)) -----
@@ -520,15 +567,15 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
     cp_async_wait<0>();             // the one wait on memory
 #pragma unroll 4
     for (int p = 0; p < kp; ++p)
-      lmax = score_pass<KV, QUANT>(slots[p * THREADS + threadIdx.x], p * L::RPP + r0, n, c, qw,
-                                   q8, kss, qscale, sm_scale, mvis, sc, lmax);
+      lmax = score_pass<KV, QUANT, BEAM>(slots[p * THREADS + threadIdx.x], p * L::RPP + r0, n, c,
+                                         qw, q8, kss, qscale, sm_scale, tab, sc, lmax);
   } else {
     for (int p = 0; p < kp; ++p) {
       if (in_stage == 0) wait_stage(held);   // this pass's stage has landed
-      lmax = score_pass<KV, QUANT>(cur[threadIdx.x], p * L::RPP + r0, n, c, qw, q8, kss, qscale,
-                                   sm_scale, mvis, sc, lmax);
-      next_pass<KV, QUANT>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb, kp,
-                           n, HD, H);
+      lmax = score_pass<KV, QUANT, BEAM>(cur[threadIdx.x], p * L::RPP + r0, n, c, qw, q8, kss,
+                                         qscale, sm_scale, tab, sc, lmax);
+      next_pass<KV, QUANT, BEAM>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb,
+                                 tab, kp, n, T, HD, H);
     }
   }
 
@@ -555,8 +602,8 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   float l = red_sum[0];
 #pragma unroll
   for (int w = 1; w < WARPS; ++w) l += red_sum[w];
-  if (l == 0.f) {                   // the mask hid every key: callers never
-    cp_async_wait<0>();             // ask (a beam's own key is visible)
+  if (l == 0.f) {                   // the table hid every key: only a group
+    cp_async_wait<0>();             // whose outputs the caller discards
     if (threadIdx.x < HEAD_DIM) store_f32(out + qo_off + threadIdx.x, 0.f);
     if (pb)
       for (int t = threadIdx.x; t < T; t += THREADS) pb[t] = 0.f;
@@ -602,14 +649,14 @@ decode_attention_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
   if (whole) {
 #pragma unroll 4
     for (int p = kp; p < P; ++p)
-      value_pass<KV, QUANT>(acc, slots[p * THREADS + threadIdx.x], (p - kp) * L::RPP + r0, n,
-                            sc);
+      value_pass<KV, QUANT, BEAM>(acc, slots[p * THREADS + threadIdx.x], (p - kp) * L::RPP + r0,
+                                  n, tab, sc);
   } else {
     for (int p = kp; p < P; ++p) {
       if (in_stage == 0) wait_stage(held);
-      value_pass<KV, QUANT>(acc, cur[threadIdx.x], (p - kp) * L::RPP + r0, n, sc);
-      next_pass<KV, QUANT>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb, kp,
-                           n, HD, H);
+      value_pass<KV, QUANT, BEAM>(acc, cur[threadIdx.x], (p - kp) * L::RPP + r0, n, tab, sc);
+      next_pass<KV, QUANT, BEAM>(cur, in_stage, next, held, slots, span, sp, P, kss, kb, vb, ksb,
+                                 tab, kp, n, T, HD, H);
     }
   }
 #pragma unroll
@@ -979,16 +1026,34 @@ int launch_split(const void* q, const void* k, const void* v, const void* ks, co
   return (int)cudaGetLastError();
 }
 
+template <typename KV, typename QO, bool QUANT, bool BEAM>
+int launch_direct(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                  const void* lengths, int len_default, int causal, const void* rows, void* out,
+                  void* probs, int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
+  const auto kernel = decode_attention_kernel<KV, QO, QUANT, BEAM>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int ring = ring_passes<KV, QUANT>(T, BEAM);
+  if (ring < STAGES) return (int)cudaErrorInvalidValue;
+  dim3 grid(H, S, B);
+  kernel<<<grid, THREADS, (size_t)ring * PASS_BYTES + direct_tail<QUANT>(T, BEAM), st>>>(
+      (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
+      (const int*)lengths, len_default, causal, (const int8_t*)rows, (QO*)out, (float*)probs, S,
+      H, T, sm_scale, ring);
+  return (int)cudaGetLastError();
+}
+
 template <typename KV, typename QO, bool QUANT, bool SPLIT>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, int len_default, int causal,
-           const void* mask, void* out, void* probs, int B, int S, int H, int T,
+           const void* rows, void* out, void* probs, int B, int S, int H, int T,
            float sm_scale, cudaStream_t st) {
   if (B <= 0 || S <= 0 || H <= 0 || T <= 0 ||
       (SPLIT ? H > 65535 || (long long)S * B > 65535 : S > 65535 || B > 65535))
     return (int)cudaErrorInvalidValue;
   if constexpr (SPLIT) {
-    if (mask) return (int)cudaErrorInvalidValue;      // the beam mode is K4's
+    if (rows) return (int)cudaErrorInvalidValue;      // the beam mode is K4's
     if (smem_split<KV>(T, 1) > MAX_SMEM_SPLIT) return (int)cudaErrorInvalidValue;
     // int8 K/V: two adjacent heads to a cluster when H is even (see the
     // header), one head otherwise.
@@ -999,36 +1064,34 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     return launch_split<KV, QO, QUANT, 1>(q, k, v, ks, vs, lengths, len_default, causal, out,
                                           probs, B, S, H, T, sm_scale, st);
   } else {
-    const auto kernel = decode_attention_kernel<KV, QO, QUANT>;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
-    if (attr != cudaSuccess) return (int)attr;
-    const int ring = ring_passes<KV, QUANT>(T, mask != nullptr);
-    if (ring < STAGES) return (int)cudaErrorInvalidValue;
-    dim3 grid(H, S, B);
-    kernel<<<grid, THREADS, (size_t)ring * PASS_BYTES + direct_tail<QUANT>(T, mask != nullptr),
-             st>>>((const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
-                   (const int*)lengths, len_default, causal, (const unsigned char*)mask,
-                   (QO*)out, (float*)probs, S, H, T, sm_scale, ring);
-    return (int)cudaGetLastError();
+    if (!rows)
+      return launch_direct<KV, QO, QUANT, false>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                 nullptr, out, probs, B, S, H, T, sm_scale, st);
+    // The beam mode: every group's lengths, no causal offset, T bytes of
+    // table a query; int8 taken as plain numbers has none.
+    if constexpr (QUANT || sizeof(KV) > 1)
+      if (lengths && !causal && T <= TAB_LOADS * THREADS)
+        return launch_direct<KV, QO, QUANT, true>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                  rows, out, probs, B, S, H, T, sm_scale, st);
+    return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename QO, bool SPLIT>
 int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
                 const void* ks, const void* vs, const void* lengths,
-                int len_default, int causal, const void* mask, void* out, void* probs,
+                int len_default, int causal, const void* rows, void* out, void* probs,
                 int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
   switch (kv_kind) {
     case 0: return launch<int8_t, QO, true, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
-                                                   mask, out, probs, B, S, H, T, sm_scale, st);
+                                                   rows, out, probs, B, S, H, T, sm_scale, st);
     case 1: return launch<int8_t, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
-                                                    mask, out, probs, B, S, H, T, sm_scale, st);
+                                                    rows, out, probs, B, S, H, T, sm_scale, st);
     case 2: return launch<__nv_bfloat16, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                           causal, mask, out, probs, B, S, H, T,
+                                                           causal, rows, out, probs, B, S, H, T,
                                                            sm_scale, st);
     case 3: return launch<float, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
-                                                   mask, out, probs, B, S, H, T, sm_scale, st);
+                                                   rows, out, probs, B, S, H, T, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1040,30 +1103,32 @@ int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
 // (kv_kind 0), int8 taken as plain numbers (1), bf16 (2) or fp32 (3).
 // lengths: int32 [B] or null (then every row has len_default).
 // Query s of row b sees keys t < lengths[b] + (causal ? s : 0), at most T.
-// mask: null, or the beam mode (K4 only): uint8 [B, S, T], and key t is
-// visible to query s of row b iff it is nonzero (and t < the length above;
-// the beam mode passes no lengths, len_default T and causal 0).
+// rows: null, or the beam mode (K4 only): int8 [B, S, T]. Then row b is a
+// group of S beams over k, v [B, S*T, H*64] (ks, vs [B, S*T, H]), lengths
+// are required and causal is 0, T <= 512, and key t < lengths[b] of query
+// s is position t of the group's cache row r = rows[b, s, t] (flat key
+// r*T + t), none where r = -1.
 // probs: null, or fp32 [B, S, H, T] that takes the probs of the value sum
 // (int8 levels in the int8 mode; 0 past each query's keys), for checks.
 // pipelined: 0 = direct loads (K4), 1 = the cluster split over T (K5).
 extern "C" int oh_decode_attention(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* lengths, int len_default,
-                                   int causal, const void* mask, void* out, void* probs,
+                                   int causal, const void* rows, void* out, void* probs,
                                    int B, int S, int H, int T, float sm_scale, int kv_kind,
                                    int qo_kind, int pipelined, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (qo_kind == 0)
     return pipelined
         ? dispatch_kv<float, true>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                   mask, out, probs, B, S, H, T, sm_scale, st)
+                                   rows, out, probs, B, S, H, T, sm_scale, st)
         : dispatch_kv<float, false>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                    mask, out, probs, B, S, H, T, sm_scale, st);
+                                    rows, out, probs, B, S, H, T, sm_scale, st);
   if (qo_kind == 1)
     return pipelined
         ? dispatch_kv<__nv_bfloat16, true>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                           causal, mask, out, probs, B, S, H, T, sm_scale, st)
+                                           causal, rows, out, probs, B, S, H, T, sm_scale, st)
         : dispatch_kv<__nv_bfloat16, false>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                            causal, mask, out, probs, B, S, H, T, sm_scale, st);
+                                            causal, rows, out, probs, B, S, H, T, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

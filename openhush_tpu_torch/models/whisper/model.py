@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from openhush_tpu_torch.models.whisper.config import WhisperConfig
-from openhush_tpu_torch.ops.decode_attention import (attend_decode,
+from openhush_tpu_torch.ops.decode_attention import (ancestry_rows,
+                                                     attend_decode,
                                                      attend_decode_beam,
                                                      attend_decode_pipelined,
                                                      div127)
@@ -551,10 +552,11 @@ _decode_flat_ro.layers = 0
 
 
 def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
-                 cache, cross_kv, cross_group: int, anc_mask=None):
+                 cache, cross_kv, cross_group: int, beam=None):
     """The layers of the flat step (_decode_flat_ro) and of the grouped
-    beam step (decode_beam_step, `anc_mask` [G, K, K*T]: the
-    self-attention on K4's beam mode over each group's K cache rows)."""
+    beam step (decode_beam_step, `beam` = (rows int8 [G, K, T], lengths
+    int32 [G]): the self-attention on K4's beam mode over each group's K
+    cache rows, through the source-row table)."""
     dec = params["decoder"]
     B, S, _ = x.shape
     tp, n_head = _decoder_tp(cfg, params)
@@ -578,11 +580,11 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
         h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
         q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
-        if anc_mask is None:
+        if beam is None:
             attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
                                  causal=True)
         else:
-            attn = attend_decode_beam(group(q), group(k), group(v), anc_mask,
+            attn = attend_decode_beam(group(q), group(k), group(v), *beam,
                                       n_head, ks=group(ks),
                                       vs=group(vs)).view(B, S, -1)
         x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
@@ -647,10 +649,14 @@ def decode_beam_step(cfg: WhisperConfig, params: Params,
 
     Beam (g, i)'s new key and value are written at row g*K + i, position
     pos[g] (in int8 levels and scales by one K3 launch a layer in an int8
-    self-cache), and then the beams attend on K4's beam mode with
+    self-cache), and then the beams attend on K4's beam mode under
     anc_mask [G, K, K*T]: query i sees flat key j = row*T + t iff it is
-    set. The caller passes the ancestry with each beam's own bit at pos[g]
-    already set (beam_own), which is also the next step's ancestry. That
+    set. The mask becomes a source-row table once a step, before the
+    layers (ops.decode_attention.ancestry_rows: the one row a beam reads at
+    each position), and K4 reads positions t < min(pos[g] + 1, T) through
+    it in every layer. The caller passes the ancestry with each beam's own
+    bit at pos[g] already set (beam_own), which is also the next step's
+    ancestry: bits only at positions up to pos[g]. That
     is the reference's key set (its mask over the cache plus the identity
     block over the new keys beside it) while pos[g] < T. A write at T is
     dropped, as the reference's mode="drop" drops it, and then the beam does
@@ -671,9 +677,11 @@ def decode_beam_step(cfg: WhisperConfig, params: Params,
     # Clamped like the reference's gather of an out-of-range position.
     x = dec["tok_emb"][tokens] + dec["pos_emb"][
         pos.clamp(max=cfg.n_text_ctx - 1)][:, None].to(dec["tok_emb"].dtype)
+    beam = (ancestry_rows(anc_mask),
+            (pos + 1).clamp(max=cache.k.shape[2]).to(torch.int32))
     logits, cache = _flat_layers(cfg, params, x.view(G * K, 1, -1),
                                  pos.repeat_interleave(K), cache, cross_kv,
-                                 K, anc_mask)
+                                 K, beam)
     return logits.view(G, K, -1), cache
 
 

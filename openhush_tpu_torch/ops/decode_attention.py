@@ -15,15 +15,17 @@ gives the same bits on every launch. The decode step
 (models/whisper/model.py:_decode_flat_ro) runs the self-attention on K4
 and the cross-attention on K5. `attend_decode_beam` is K4's beam mode: the
 grouped beam step's self-attention (model.py:decode_beam_step), where
-each of a group's K beams sees the keys of the group's K cache rows that
-its ancestry mask selects.
+each of a group's K beams reads, at each position, the one cache row of
+the group that its ancestry selects there: a source-row table that
+`ancestry_rows` builds from the ancestry mask once a step.
 
 Three functions, each with its plain PyTorch version here:
 - `attend_decode_plain` is the production arithmetic of the JAX decode step
   (model.py:_attend_decode_flat, _attend_decode_flat_multi and
   _attend_decode_flat_ro), per query, with per-row key lengths;
-- `attend_decode_beam_plain` is the same arithmetic under an ancestry mask
-  (the JAX model's _attend_decode_flat_beam);
+- `attend_decode_beam_plain` is the same arithmetic over each beam's
+  visible keys, addressed through the source-row table (the JAX model's
+  _attend_decode_flat_beam under the ancestry mask the table came from);
 - `decode_cross_attend_plain` is the TPU kernel's own function: q comes
   pre-scaled, no scales are applied, int8 values are taken as numbers.
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
@@ -41,6 +43,7 @@ MAX_SMEM = 200 * 1024    # K4's dynamic shared memory, at most
 STAGES = 4               # K4's ring: at least one 2 KB pass per stage
 MAX_SMEM_SPLIT = 200 * 1024   # K5's, at most
 CLUSTER = 8              # K5's CTAs per query, each a slice of the keys
+TAB_MAX = 512            # K4's beam mode: positions of a table row, at most
 NEG = torch.finfo(torch.float32).min    # mask fill, as jnp.finfo(f32).min
 _QO = {torch.float32: 0, torch.bfloat16: 1}
 _KV_FLOAT = {torch.bfloat16: 2, torch.float32: 3}
@@ -110,20 +113,50 @@ def attend_decode_plain(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attend_plain(q3, k, v, mask, n_head, ks, vs, return_probs)
 
 
+def ancestry_rows(anc: torch.Tensor) -> torch.Tensor:
+    """The source-row table of an ancestry: anc bool [G, K, K, T] (or
+    [G, K, K*T]), beam i of group g reads position t of the group's cache
+    row r iff anc[g, i, r, t] → rows int8 [G, K, T], that r, or -1 where
+    no row is set. model.beam_ancestry, beam_own and beam._gather_beams
+    set at most one row for each (group, beam, position); this is not
+    checked here (a check on the card would cost a sync a step)."""
+    G, K = anc.shape[:2]
+    anc = anc.view(G, K, K, -1)
+    r = torch.arange(K, dtype=torch.int8, device=anc.device).view(1, 1, K, 1)
+    return torch.where(anc, r, -1).amax(dim=2)
+
+
 def attend_decode_beam_plain(q3: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, anc_mask: torch.Tensor,
-                             n_head: int, *, ks=None, vs=None,
-                             return_probs: bool = False):
+                             v: torch.Tensor, rows: torch.Tensor,
+                             lengths: torch.Tensor, n_head: int, *,
+                             ks=None, vs=None, return_probs: bool = False):
     """The grouped beam step's self-attention: q3 [G, K, H*D], one query a
-    beam; k, v [G, K*T, H*D], the group's K cache rows as one row of keys
-    (int8 with scales ks, vs [G, K*T, H], or float); anc_mask bool
-    [G, K, K*T]: query i sees key j iff anc_mask[g, i, j]. The arithmetic of
-    attend_decode_plain with the reference's finfo(f32).min fill
-    (_attend_decode_flat_beam), whose cache mask and identity block over the
-    new keys are one mask here: the caller writes each beam's new key into
-    the cache first and sets its own bit (model.decode_beam_step)."""
-    return _attend_plain(q3, k, v, anc_mask.transpose(1, 2)[..., None],
-                         n_head, ks, vs, return_probs)
+    beam; k, v [G, K*T, H*D], the group's K cache rows of T positions as
+    one row of keys (int8 with scales ks, vs [G, K*T, H], or float); rows
+    int8 [G, K, T] (ancestry_rows) and lengths int [G]: key t < lengths[g]
+    of beam i is position t of the group's cache row rows[g, i, t] (flat
+    key rows*T + t), none where that is -1. Each beam's keys are gathered
+    by position, then take attend_decode_plain's arithmetic with the
+    reference's finfo(f32).min fill on the hidden ones: the function of
+    _attend_decode_flat_beam under the mask `rows` came from, whose cache
+    mask and identity block over the new keys are one mask here (the
+    caller writes each beam's new key into the cache first and sets its
+    own bit, model.decode_beam_step). return_probs: the probs by position,
+    [G, K, H, T]."""
+    G, K, HD = q3.shape
+    T = rows.shape[-1]
+    t = torch.arange(T, device=rows.device)
+    seen = (rows >= 0) & (t < torch.as_tensor(lengths).view(G, 1, 1))
+    src = rows.long().clamp(min=0) * T + t                     # [G, K, T]
+    at = lambda x: None if x is None else x[
+        torch.arange(G, device=x.device)[:, None, None], src].view(
+            G * K, T, -1)
+    out = _attend_plain(q3.reshape(G * K, 1, HD), at(k), at(v),
+                        seen.view(G * K, T, 1, 1), n_head, at(ks), at(vs),
+                        return_probs)
+    if return_probs:
+        return out[0].view(G, K, HD), out[1].view(G, K, n_head, T)
+    return out.view(G, K, HD)
 
 
 def _attend_plain(q3, k, v, mask, n_head: int, ks, vs, return_probs: bool):
@@ -182,26 +215,29 @@ def decode_cross_attend_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
             pipelined: bool, name: str, return_probs: bool = False,
-            mask=None):
+            rows=None):
     """Check the operands and launch the kernel; returns [B, S, H*D] in
-    q3's dtype (and the probs, as attend_decode_plain). `mask` (K4 only):
-    bool [B, S, T], key t visible to query s of row b iff it is set."""
+    q3's dtype (and the probs, as attend_decode_plain). `rows` (K4 only,
+    the beam mode): int8 [B, S, T], row b a group of S beams over k, v
+    [B, S*T, H*D] and `lengths` an int32 [B] tensor, as
+    attend_decode_beam_plain takes them."""
     B, S, HD = q3.shape
-    T = k.shape[1]
+    keys = k.shape[1]
+    T = keys if rows is None else rows.shape[-1]
     if HD != n_head * HEAD_DIM:
         raise ValueError(f"{name}: width {HD} with {n_head} heads; the "
                          f"kernel takes head_dim {HEAD_DIM}")
-    if q3.dtype not in _QO or k.shape != (B, T, HD) or v.shape != k.shape \
+    if q3.dtype not in _QO or k.shape != (B, keys, HD) or v.shape != k.shape \
             or v.dtype != k.dtype:
         raise ValueError(f"{name}: q {q3.dtype} {tuple(q3.shape)}, k/v "
                          f"{k.dtype} {tuple(k.shape)}/{tuple(v.shape)}")
     if pipelined:      # a slice's rows (K's, then V's), the value sums'
         per = -(-T // CLUSTER)        # 3 KB, the scores, ks and vs
-        rows = per * HEAD_DIM * k.element_size()
-        fits = rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
-    else:              # every key's score (and ks, vs; the mask's row), one
+        slice_rows = per * HEAD_DIM * k.element_size()
+        fits = slice_rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
+    else:              # every key's score (and ks, vs; the table's row), one
         tail = T * 4 * (3 if kv_kind == 0 else 1)      # ring of passes
-        if mask is not None:
+        if rows is not None:
             tail += -(-T // 16) * 16
         fits = tail + STAGES * 2048 <= MAX_SMEM
     if not fits:
@@ -209,11 +245,11 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
                          f"shared memory")
     tensors = [q3, k, v]
     if kv_kind == 0:
-        if ks is None or vs is None or ks.shape != (B, T, n_head) \
+        if ks is None or vs is None or ks.shape != (B, keys, n_head) \
                 or vs.shape != ks.shape or ks.dtype != torch.float32 \
                 or vs.dtype != torch.float32:
             raise ValueError(f"{name}: int8 K/V need fp32 scales "
-                             f"[{B}, {T}, {n_head}]")
+                             f"[{B}, {keys}, {n_head}]")
         tensors += [ks, vs]
     len_ptr, len_default = None, T
     if isinstance(lengths, int):
@@ -223,11 +259,16 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
             raise ValueError(f"{name}: lengths must be int32 [{B}]")
         tensors.append(lengths)
         len_ptr = lengths.data_ptr()
-    if mask is not None:
-        if pipelined or mask.dtype != torch.bool or mask.shape != (B, S, T):
-            raise ValueError(f"{name}: the mask must be bool [{B}, {S}, {T}] "
-                             f"on the direct path")
-        tensors.append(mask)
+    if rows is not None:
+        if pipelined or kv_kind == 1 or causal or len_ptr is None \
+                or rows.dtype != torch.int8 or rows.shape != (B, S, T) \
+                or keys != S * T or T > TAB_MAX:
+            raise ValueError(
+                f"{name}: the beam mode takes rows int8 [{B}, {S}, T] with "
+                f"T <= {TAB_MAX} positions over {S}*T keys and int32 "
+                f"lengths [{B}], on the direct path; got rows {rows.dtype} "
+                f"{tuple(rows.shape)} over {keys} keys")
+        tensors.append(rows)
     for t in tensors:
         if t.device != q3.device or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous on "
@@ -243,7 +284,7 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
         ks.data_ptr() if kv_kind == 0 else None,
         vs.data_ptr() if kv_kind == 0 else None,
         len_ptr, len_default, int(causal),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        rows.data_ptr() if rows is not None else None, out.data_ptr(),
         probs.data_ptr() if return_probs else None, B, S, n_head, T,
         sm_scale, kv_kind, _QO[q3.dtype], int(pipelined),
         torch.cuda.current_stream(q3.device).cuda_stream)
@@ -261,7 +302,7 @@ def _no_gradient(name, *tensors):
 
 
 def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
-            return_probs, mask=None):
+            return_probs, rows=None):
     if q3.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q3.device}")
     if k.dtype == torch.int8:
@@ -272,7 +313,7 @@ def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
         raise ValueError(f"{name}: K/V dtype {k.dtype}")
     return _launch(q3, k, v, lengths, n_head, ks, vs, causal,
                    (q3.shape[-1] // n_head) ** -0.5, kv_kind, pipelined, name,
-                   return_probs, mask)
+                   return_probs, rows)
 
 
 def attend_decode(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -310,19 +351,23 @@ def attend_decode_pipelined(q3: torch.Tensor, k: torch.Tensor,
 
 
 def attend_decode_beam(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       anc_mask: torch.Tensor, n_head: int, *, ks=None,
-                       vs=None, return_probs: bool = False):
+                       rows: torch.Tensor, lengths: torch.Tensor,
+                       n_head: int, *, ks=None, vs=None,
+                       return_probs: bool = False):
     """Same function as `attend_decode_beam_plain`. CPU tensors take the
-    plain version; CUDA tensors launch K4's beam mode (the direct path with
-    the mask: every one of the K*T keys read, the hidden ones scored -inf).
-    Every query must see at least one key: the kernel writes zeros where
-    none is visible, the plain version a uniform average."""
+    plain version; CUDA tensors launch K4's beam mode (one CTA per (head,
+    beam, group) on the direct path, reading only the rows the table
+    names at positions t < lengths[g]). rows must be int8 [G, K, T] and
+    lengths int32 [G]. Every query must see at least one key: the kernel
+    writes zeros where none is visible, the plain version a uniform
+    average."""
     _no_gradient("attend_decode_beam", q3, k, v, ks, vs)
     if q3.device.type == "cpu":
-        return attend_decode_beam_plain(q3, k, v, anc_mask, n_head, ks=ks,
-                                        vs=vs, return_probs=return_probs)
-    out = _attend(q3, k, v, None, n_head, ks, vs, False, False,
-                  "attend_decode_beam", return_probs, mask=anc_mask)
+        return attend_decode_beam_plain(q3, k, v, rows, lengths, n_head,
+                                        ks=ks, vs=vs,
+                                        return_probs=return_probs)
+    out = _attend(q3, k, v, lengths, n_head, ks, vs, False, False,
+                  "attend_decode_beam", return_probs, rows=rows)
     attend_decode_beam.launches += 1
     return out
 

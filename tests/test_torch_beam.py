@@ -106,12 +106,30 @@ def _random_ancestry(rng, G, K, T, P, pos):
 def test_attend_decode_beam_plain_matches_jax(kind):
     """K4's beam mode's plain version under the port's write-first
     convention (each beam's new key written at pos, the mask anc_att |
-    own) against JAX's _attend_decode_flat_beam (the cache under anc_att
-    and the new keys beside it, under the identity block)."""
+    own, turned into the source-row table by ancestry_rows, lengths
+    pos + 1) against JAX's _attend_decode_flat_beam (the cache under
+    anc_att and the new keys beside it, under the identity block). The
+    probs come by position and are 0 where the table has no row."""
+    _check_beam_plain(kind, holes=False)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_attend_decode_beam_plain_matches_jax_with_holes(kind):
+    """As test_attend_decode_beam_plain_matches_jax, on ancestries with
+    (beam, position) entries below pos cleared at random (a third of
+    them): tables with -1 entries under the length, which the beam loops'
+    ancestries never give but the kernel's contract allows."""
+    _check_beam_plain(kind, holes=True)
+
+
+def _check_beam_plain(kind, holes):
     G, K, T, H, D = 2, 3, 8, 2, 32
     HD, P, pos = H * D, 3, 6
-    rng = np.random.default_rng(0 if kind == "fp32" else 1)
+    rng = np.random.default_rng((0 if kind == "fp32" else 1) + 2 * holes)
     anc = _random_ancestry(rng, G, K, T, P, pos)
+    if holes:
+        drop = (rng.random((G, K, T)) < 1 / 3) & (np.arange(T) < pos)
+        anc &= ~drop[:, :, None, :]
     q = rng.standard_normal((G, K, HD)).astype(np.float32)
     if kind == "fp32":
         kc, vc = (rng.standard_normal((G, K * T, HD)).astype(np.float32)
@@ -142,11 +160,118 @@ def test_attend_decode_beam_plain_matches_jax(kind):
                vs=written(scales["vs"], scales["vsn"])))
     mask = model.beam_own(torch.from_numpy(anc), torch.full((G,), pos))
     assert bool(mask[:, :, :, pos].diagonal(dim1=1, dim2=2).all())
-    out = da.attend_decode_beam(torch.from_numpy(q), written(kc, kn),
-                                written(vc, vn), mask.view(G, K, K * T), H,
-                                **kw)
+    rows = da.ancestry_rows(mask.view(G, K, K * T))
+    lengths = torch.full((G,), pos + 1, dtype=torch.int32)
+    out, probs = da.attend_decode_beam(torch.from_numpy(q), written(kc, kn),
+                                       written(vc, vn), rows, lengths, H,
+                                       **kw, return_probs=True)
     assert out.dtype == torch.float32 and out.shape == (G, K, HD)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    assert probs.shape == (G, K, H, T)
+    assert bool((probs[(rows < 0)[:, :, None, :].expand_as(probs)] == 0)
+                .all())
+    assert bool((rows[:, :, :pos] < 0).any()) == holes
+
+
+def _walk_ancestries(seed, G=3, K=4, T=10, P=3):
+    """Ancestries [G, K, K, T] as the beam loops make them
+    (model.beam_ancestry, then beam._gather_beams by random parents and
+    model.beam_own at each group's pos), one a step from pos P to T: group
+    0 freezes at pos 6 (identity parents, its pos held, as the beam
+    batcher keeps a group that is not live), the others run on to pos T,
+    where the own write is dropped."""
+    gen = torch.Generator().manual_seed(seed)
+    anc = model.beam_ancestry(G, K, T, P)
+    for p in range(P, T + 1):
+        pos = torch.full((G,), p)
+        pos[0] = min(p, 6)
+        parents = torch.randint(0, K, (G, K), generator=gen)
+        parents[0] = parents[0] if p <= 6 else torch.arange(K)
+        anc = model.beam_own(beam._gather_beams(anc, parents), pos)
+        yield p, anc
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ancestry_rows_round_trips(seed):
+    """The table ancestry_rows builds gives back the ancestry it came from
+    (for [G, K, K, T] and the flat [G, K, K*T] view alike), at every step
+    of a random parent walk, with a group frozen early and the last step's
+    own write at pos == T dropped."""
+    for p, anc in _walk_ancestries(seed):
+        G, K, _, T = anc.shape
+        rows = da.ancestry_rows(anc)
+        assert rows.dtype == torch.int8 and rows.shape == (G, K, T)
+        assert torch.equal(rows, da.ancestry_rows(anc.view(G, K, K * T)))
+        back = rows[:, :, None, :] == torch.arange(K).view(1, 1, K, 1)
+        assert torch.equal(back, anc), f"pos {p}"
+        assert bool((rows[:, :, min(p, T - 1) + 1:] == -1).all())
+    assert bool((rows[1:] >= 0).all())    # pos T: every position written
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_beam_ancestry_one_row_per_position(seed):
+    """The invariant the table rests on: no (group, beam, position) of an
+    ancestry the beam loops make ever has two rows set, and a beam sees
+    its own row at the position it just wrote."""
+    for p, anc in _walk_ancestries(seed):
+        assert int(anc.sum(dim=2).max()) <= 1, f"pos {p}"
+        if p < anc.shape[-1]:
+            own = anc[1:, :, :, p].diagonal(dim1=1, dim2=2)
+            assert bool(own.all()), f"pos {p}"
+
+
+def test_attend_decode_beam_launch_checks_the_table():
+    """The kernel's wrapper refuses a table that is not int8 [G, K, T]
+    over K*T keys, and lengths that are not an int32 [G] tensor, before
+    anything is built or launched."""
+    G, K, T, H = 2, 3, 8, 2
+    q = torch.zeros(G, K, H * 64, dtype=torch.bfloat16)
+    k = torch.zeros(G, K * T, H * 64, dtype=torch.bfloat16)
+    rows = torch.zeros(G, K, T, dtype=torch.int8)
+    lengths = torch.full((G,), T, dtype=torch.int32)
+    launch = lambda r, n: da._launch(q, k, k, n, H, None, None, False, 0.125,
+                                     2, False, "attend_decode_beam", rows=r)
+    for r, n in ((rows.long(), lengths), (rows[:, :, :-1], lengths),
+                 (rows, lengths.long()), (rows, T), (rows, None),
+                 (rows.new_zeros(G, K, T + 1), lengths)):
+        with pytest.raises(ValueError):
+            launch(r, n)
+
+
+def test_attend_decode_launch_passes_the_table(monkeypatch):
+    """What the wrapper hands the kernel's C entry, on a stand-in library:
+    the beam mode passes the table, the lengths, B = G, S = K and T = the
+    positions; the self mode (K4) and the cross mode (K5) pass no table."""
+    import types
+    from openhush_tpu_torch.ops import _build
+    got = []
+
+    def entry(*args):
+        got.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        oh_decode_attention=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    G, K, T, H = 2, 3, 8, 2
+    q = torch.zeros(G, K, H * 64, dtype=torch.bfloat16)
+    k = torch.zeros(G, K * T, H * 64, dtype=torch.bfloat16)
+    rows = torch.zeros(G, K, T, dtype=torch.int8)
+    lengths = torch.full((G,), T, dtype=torch.int32)
+    da._launch(q, k, k, lengths, H, None, None, False, 0.125, 2, False,
+               "attend_decode_beam", rows=rows)
+    da._launch(q, k, k, lengths, H, None, None, True, 0.125, 2, False,
+               "attend_decode")
+    da._launch(q, k, k, None, H, None, None, False, 0.125, 2, True,
+               "attend_decode_pipelined")
+    beam_args, self_args, cross_args = got
+    assert beam_args[5] == lengths.data_ptr() and beam_args[7] == 0
+    assert beam_args[8] == rows.data_ptr()
+    assert beam_args[11:15] == (G, K, H, T)
+    assert self_args[8] is None and self_args[11:15] == (G, K, H, K * T)
+    assert cross_args[8] is None and cross_args[5] is None
 
 
 def _prefilled_caches(jparams, jkv, G, K, T, prompt, int8):
