@@ -44,6 +44,12 @@ Phases, each printing its own lines and its seconds:
      512 rows; K5 with S=4 (B=8) and S=5 (B=1) queries a row on the int8
      cross-KV and the one-shot draft's S=1 step on a bf16 one; each against
      the plain version and itself, timed cold beside its bound and SDPA;
+     K5's multi-query mode (a cluster per row for its S queries) at the
+     beam server's G=4/S=5, the one-shot beam's G=1/S=5 and both verify
+     shapes, on bf16 K/V, at S=13 (blocks walked) and 5 heads: against the
+     plain version, against S launches of one query each (bit for bit) and
+     itself, the four int8 shapes timed beside their bound and the
+     per-query grid's time;
      the audio front's three recurrences (csrc/dsp.cu): the compressor's
      envelope and the limiter's gain on one 30 s window and on a 5 s
      chunk, the Wiener denoiser's noise floor on [3000, 22], each the plain
@@ -209,7 +215,8 @@ Phases, each printing its own lines and its seconds:
 then a `{"kernels": [...]}` line (launches from the serving path for K1-K5,
 from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
-beam-mode row, from 4f's one-shot speculative engine for the two verify
+beam-mode row and K5's multi-query row (with 4e's one-shot and int8 and
+4f's verify launches of the mode beside), from 4f's one-shot speculative engine for the two verify
 rows, from 4c-audio's preprocess server for the three DSP rows; K1-K5 also
 carry phase 4g's launches as distill_launches, phase 11's as
 record_launches and phase 12's as evaluate_launches, K1-K5 and the limiter
@@ -1296,6 +1303,124 @@ def phase_spec_attention(da, quantize):
             f"{plain_ms:.4f} ms, bound {b * 1e3:.3f} us ({by}), SDPA {lib}")
     rows.append(k5)
     return rows
+
+
+def multi_held(da, what, q, kv, lengths, H):
+    """K5's multi-query mode (`attend_decode_multi`) on one shape: within
+    the plain version's tolerance (1e-2 on the outputs; int8: a prob level
+    within 1 on <= 1e-3 of the visible keys, as phase 2's K5 rows), the
+    same bits over two launches, and each query's output and probs equal,
+    bit for bit, to a K5 launch of that query alone (S=1). Returns the max
+    abs error against the plain version."""
+    k, v, ks, vs = kv
+    B, S, _ = q.shape
+    T = k.shape[1]
+    kw = dict(ks=ks, vs=vs, return_probs=True)
+    (o, p), (o2, p2) = (da.attend_decode_multi(q, k, v, lengths, H, **kw)
+                        for _ in range(2))
+    alone = [da.attend_decode_pipelined(q[:, s:s + 1].contiguous(), k, v,
+                                        lengths, H, **kw) for s in range(S)]
+    plain, p_plain = da.attend_decode_plain(q, k, v, lengths, H, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(p, p2),
+          f"{what}: the same bits over two launches")
+    same = (torch.equal(o, torch.cat([a[0] for a in alone], 1))
+            and torch.equal(p, torch.cat([a[1] for a in alone], 1)))
+    e = (o.float() - plain.float()).abs().max().item()
+    dp = (p - p_plain).abs()
+    n = B * T if lengths is None else int(lengths.clamp(max=T).sum())
+    share = dp.ne(0).sum().item() / (H * S * n)
+    int8 = ks is not None
+    log(f"{what}: max_abs_err {e:.3e} (tolerance 1e-2), "
+        + (f"int8 prob levels max diff {dp.max().item():.0f} on {share:.2e} "
+           f"of visible keys (tolerance 1 level on <= 1e-3)" if int8 else
+           f"probs max_abs_err {dp.max().item():.3e}")
+        + f"; each query {'equal' if same else 'NOT equal'} bit for bit to "
+        f"a launch of it alone; the same bits over two launches")
+    check(same, f"{what}: each query's output and probs == a K5 launch of "
+          f"that query alone")
+    check(e <= 1e-2 and (not int8 or (dp.max().item() <= 1
+                                      and share <= 1e-3)),
+          f"{what} vs plain")
+    return e
+
+
+def phase_multi_attention(da, quantize):
+    """K5's multi-query mode (one cluster per (pair of heads, row) for the
+    row's S queries, causal off) at large-v3's widths (20 heads, Dh 64)
+    over the int8 cross-KV of T = 1500 rows, every key visible: a 4-group
+    beam server's step (G=4 rows of K=5 beams folded, S=5), the one-shot
+    beam (G=1, S=5), the spec server's verify (B=8, S=4) and the one-shot
+    verify (B=1, S=5), each through multi_held and timed cold over 32
+    per-layer copies beside its bound (bytes), the plain version's time
+    and the per-query grid's on the same inputs (K5 before this mode: a
+    cluster per query, each reading the row's keys); also through
+    multi_held bf16 K/V (B=1, S=5), 13 queries a row (blocks of S_MAX
+    walked over one slice) at B=3 with per-row lengths 1499, 700 and 1 and
+    at B=1 (a thread group a query), and 5 heads (one head a cluster,
+    S=6). Returns the `{"kernels"}` row of the mode."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    H, D, T = 20, 64, 1500
+    HD = H * D
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+
+    def int8_kv(B, T=T, H=H):
+        (k8, ks), (v8, vs) = (quantize.quantize_heads_plain(
+            rnd(B, T, H * D).to(torch.bfloat16), H) for _ in range(2))
+        return k8, v8, ks, vs
+
+    def per_query(q, k, v, lengths, n_head, ks=None, vs=None):
+        return da._attend(q, k, v, lengths, n_head, ks, vs, False, 1,
+                          "K5 per query", False)
+
+    def timed(fn, q, kv):
+        layers = [tuple(x.clone() for x in kv) for _ in range(N_LAYER)]
+        return time_ms(rotate([functools.partial(
+            fn, q, k, v, None, H, ks=ks, vs=vs) for k, v, ks, vs in layers]),
+            iters=2 * N_LAYER)
+
+    row = dict(name="decode_attention_multi",
+               source="openhush_tpu_torch/csrc/decode_attention.cu",
+               replaces="openhush_tpu/ops/decode_attention_dma.py:101",
+               counter=da.attend_decode_multi, library_ms=None)
+    for pre, what, B, S in (("", "beam server, G=4 groups of K=5", 4, 5),
+                            ("g1_", "one-shot beam, G=1", 1, 5),
+                            ("spec8_", "spec server verify", SERVE_SLOTS,
+                             K_SPEC),
+                            ("spec1_", "one-shot verify", 1, K_ONESHOT)):
+        q = rnd(B, S, HD).to(torch.bfloat16)
+        kv = int8_kv(B)
+        e = multi_held(da, f"K5 multi-query ({what}: B={B}, S={S}, int8 "
+                       f"cross-KV, T={T})", q, kv, None, H)
+        b, by = bound_ms(2 * B * T * HD + 2 * B * T * H * 4
+                         + 2 * B * S * HD * 2, 4 * B * S * T * HD, "fp32")
+        ms = timed(da.attend_decode_multi, q, kv)
+        old = timed(per_query, q, kv)
+        plain = time_ms(rotate([functools.partial(
+            da.attend_decode_plain, q, *kv[:2], None, H, ks=kv[2],
+            vs=kv[3])]))
+        row.update({pre + "max_abs_err": e, pre + "ms": ms,
+                    pre + "plain_ms": plain, pre + "bound_ms": b,
+                    pre + "per_query_ms": old})
+        if pre == "":
+            row["bound_by"] = by
+        log(f"  K5 multi-query, {what} (B={B}, S={S}): kernel {ms:.4f} ms, "
+            f"the per-query grid {old:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b * 1e3:.3f} us ({by})")
+    q = rnd(1, 5, HD).to(torch.bfloat16)
+    multi_held(da, "K5 multi-query (bf16 cross-KV, B=1, S=5, T=1500)", q,
+               tuple(rnd(1, T, HD).to(torch.bfloat16) for _ in range(2))
+               + (None, None), None, H)
+    for B, lens in ((3, [T - 1, 700, 1]), (1, [T - 3])):
+        q = rnd(B, 13, HD).to(torch.bfloat16)
+        multi_held(da, f"K5 multi-query (int8, B={B}, S=13: blocks of "
+                   f"{da.S_MAX} walked, lengths {lens})", q, int8_kv(B),
+                   torch.tensor(lens, dtype=torch.int32, device=dev), H)
+    q = rnd(2, 6, 5 * D).to(torch.bfloat16)
+    multi_held(da, "K5 multi-query (int8, 5 heads: one a cluster, B=2, "
+               "S=6)", q, int8_kv(2, H=5), None, 5)
+    return row
 
 
 BEAM = 5                     # the beam width of the beam phases (K)
@@ -3476,6 +3601,14 @@ def check_beam_launches(launches, flat_calls, beam_calls, n_layer,
           and k5 == n_layer * (flat_calls + beam_calls),
           "K4's beam mode ran once a layer and grouped beam step, K4 and K5 "
           "as before")
+    if "attend_decode_multi" in launches:
+        multi = launches["attend_decode_multi"]
+        log(f"  K5's multi-query mode: {multi} of the K5 launches (at least "
+            f"{n_layer * beam_calls}: every grouped beam step's layers, the "
+            f"group's K beams folded; prefills' S > 1 queries too)")
+        check(n_layer * beam_calls <= multi <= k5,
+              "K5's multi-query mode took every grouped beam step's "
+              "cross-attention")
     if k3_writes is not None:
         writes, xkv_calls = k3_writes
         want = n_layer * (writes + xkv_calls)
@@ -3541,6 +3674,7 @@ def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
     check_beam_launches(launches, whisper._decode_flat_ro.calls, steps,
                         n_layer)
     out["oneshot"] = launches["attend_decode_beam"]
+    out["multi_oneshot"] = launches["attend_decode_multi"]
 
     # One window's beam decode: host wall and device busy per beam step.
     phase_trace(eng, decoding, whisper, frontend, beam=beam)
@@ -3550,8 +3684,9 @@ def phase_beam(eng, longform, beam, whisper, frontend, counters, n_layer):
         launches, _ = phase_serving(eng, longform, whisper, counters,
                                     n_layer, int8_self_cache=int8_self,
                                     beam_size=BEAM)
-        out["int8_self" if int8_self else "server"] = launches[
-            "attend_decode_beam"]
+        key = "int8_self" if int8_self else "server"
+        out[key] = launches["attend_decode_beam"]
+        out["multi_" + key] = launches["attend_decode_multi"]
 
     # The source-row table's work a step (decode_beam_step's ancestry_rows
     # and the lengths' clamp and cast), at the 4-group server's shape.
@@ -3715,6 +3850,12 @@ def phase_spec(seng, speculative, decoding, whisper, frontend, counters,
     big, draft = check_decode_launches(launches, flat.calls, n_layer,
                                        flat_layers=flat.layers,
                                        draft_layers=Ld)
+    out["multi_oneshot"] = launches["attend_decode_multi"]
+    log(f"  K5's multi-query mode: {out['multi_oneshot']} launches (at "
+        f"least {n_layer} x {verifies} verify passes of S={K_ONESHOT})")
+    check(n_layer * verifies <= out["multi_oneshot"]
+          <= launches["attend_decode_pipelined"],
+          "K5's multi-query mode took every verify pass's cross-attention")
     check(draft == len(lens) + K_ONESHOT * verifies,
           f"draft flat calls {draft} == a prefill a window + "
           f"{K_ONESHOT} x {verifies} verify passes")
@@ -3894,10 +4035,14 @@ def phase_spec(seng, speculative, decoding, whisper, frontend, counters,
         if not int8_self:
             check(launches["quantize_heads_kv"] == n_layer + Ld,
                   "K3 ran once a layer for the big and the draft cross-KV")
+        check(n_layer * iters <= launches["attend_decode_multi"],
+              f"spec server ({what}): K5's multi-query mode took every "
+              f"verify's cross-attention")
         if not int8_self and not forced:
             out.update(server=launches["attend_decode"],
                        server_verify=n_layer * iters,
-                       server_pipelined=launches["attend_decode_pipelined"])
+                       server_pipelined=launches["attend_decode_pipelined"],
+                       multi_server=launches["attend_decode_multi"])
         out["server_" + what] = (len(got) + 1) / iters
     return out
 
@@ -4274,6 +4419,27 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
     d._process_and_output = on_output
     emitted = []
     d._handler, d.output = None, emitted.append
+    # The tracker's calls, in order: each window the daemon hands it, each
+    # take_ready (one a drain) and each reset_dedup, for the replay below.
+    tracked = []
+    tr_add, tr_take, tr_reset = (d.tracker.add_result, d.tracker.take_ready,
+                                 d.tracker.reset_dedup)
+
+    def on_add(res):
+        tracked.append(("add", d._pack(res.sequence_id, res.chunk_id,
+                                       res.is_final)))
+        return tr_add(res)
+
+    def on_take():
+        tracked.append(("take", None))
+        return tr_take()
+
+    def on_reset():
+        tracked.append(("reset", None))
+        return tr_reset()
+
+    d.tracker.add_result, d.tracker.take_ready, d.tracker.reset_dedup = (
+        on_add, on_take, on_reset)
 
     fns = counters
     for fn in fns:
@@ -4502,26 +4668,41 @@ def _daemon_in_process(daemon_mod, ipc, server_mod, capture, counters,
           and surfaces["f2_pending"] == 0,
           "F2: both cycles' texts out, in order, 0 pending")
 
-    # The daemon's outputs are the tracker's replay of its window texts.
+    # The daemon's outputs are the tracker's replay of its window texts: the
+    # windows' texts as the server returned them, fed drain by drain (the
+    # windows each take_ready took), reset where the daemon reset it.
     from openhush_tpu_torch.runtime.tracker import (ChunkResult,
                                                     TranscriptionTracker)
     tracker = TranscriptionTracker(streaming=True)
-    replay, last_seq = [], None
-    for w in sorted(polled, key=lambda w: polled[w][0]):
-        seq, chunk, final = d._unpack(w)
-        if seq != last_seq:
+    replay, drains, drain = [], [], []
+    for what, w in tracked:
+        if what == "reset":
             tracker.reset_dedup()
-            last_seq = seq
-        tracker.add_result(ChunkResult(
-            text=polled[w][1].text.strip(), sequence_id=seq, chunk_id=chunk,
-            is_final=final, duration_secs=0.0))
-        replay += [r.text for r in tracker.take_ready() if r.text]
+            drains.append("reset")
+        elif what == "add":
+            seq, chunk, final = d._unpack(w)
+            tracker.add_result(ChunkResult(
+                text=polled[w][1].text.strip(), sequence_id=seq,
+                chunk_id=chunk, is_final=final, duration_secs=0.0))
+            drain.append((seq, chunk))
+        else:
+            replay += [r.text for r in tracker.take_ready() if r.text]
+            if drain:
+                drains.append(drain)
+            drain = []
+    out_of_order = sum(d_ != sorted(d_) for d_ in drains if d_ != "reset")
+    log(f"  the tracker: {sum(x != 'reset' for x in drains)} drains that "
+        f"took windows ({sum(len(x) > 1 for x in drains if x != 'reset')} "
+        f"took several, {out_of_order} out of chunk order), "
+        f"{drains.count('reset')} resets")
     if emitted != replay:
-        log(f"  the daemon's outputs {emitted}\n  the tracker's replay, in "
-            f"poll order {replay}\n  the windows (seq, chunk, final, poll "
-            f"s, text): {[(*d._unpack(w), round(polled[w][0] - t_drive, 3), polled[w][1].text.strip()) for w in sorted(polled, key=lambda w: polled[w][0])]}")
+        log(f"  the daemon's outputs {emitted}\n  the tracker's replay, "
+            f"drain by drain {replay}\n  the drains (seq, chunk) and resets "
+            f"{drains}\n  the windows (seq, chunk, final, poll s, text): "
+            f"{[(*d._unpack(w), round(polled[w][0] - t_drive, 3), polled[w][1].text.strip()) for w in sorted(polled, key=lambda w: polled[w][0])]}")
     check(emitted == replay, "the daemon's outputs == the tracker's replay "
           "of its windows' texts")
+    del d.tracker.add_result, d.tracker.take_ready, d.tracker.reset_dedup
 
     # Unload, then load, over IPC.
     weights_bytes = server_mod._nbytes(srv.params)
@@ -5825,6 +6006,7 @@ def main() -> int:
     int8_rows = phase_int8_self_cache(decode_attention, quantize)
     beam_rows = phase_beam_attention(decode_attention, quantize)
     spec_rows = phase_spec_attention(decode_attention, quantize)
+    multi_row = phase_multi_attention(decode_attention, quantize)
     dsp_rows = phase_dsp_kernels(dsp, denoise)
     daemon_shapes = phase_daemon_shapes(frontend, flash_attention,
                                         decode_attention, quantize, mel)
@@ -5908,8 +6090,12 @@ def main() -> int:
     # 4e: beam search on the same bf16 weights.
     t = time.monotonic()
     beam_launches = phase_beam(eng, longform, beam, whisper, frontend,
-                               counters + [decode_attention.attend_decode_beam],
+                               counters + [decode_attention.attend_decode_beam,
+                                           decode_attention.attend_decode_multi],
                                n_layer)
+    multi_row.update(launches=beam_launches["multi_server"],
+                     oneshot_launches=beam_launches["multi_oneshot"],
+                     int8_self_launches=beam_launches["multi_int8_self"])
     beam_rows[0].update(launches=beam_launches["server"],
                         oneshot_launches=beam_launches["oneshot"],
                         int8_self_launches=beam_launches["int8_self"])
@@ -5922,7 +6108,10 @@ def main() -> int:
                          draft_model="large-v3-turbo", allow_random_init=True)
     del eng
     spec = phase_spec(seng, speculative, decoding, whisper, frontend,
-                      counters, n_layer, EngineServer, batcher)
+                      counters + [decode_attention.attend_decode_multi],
+                      n_layer, EngineServer, batcher)
+    multi_row.update(verify_launches=spec["multi_oneshot"],
+                     server_verify_launches=spec["multi_server"])
     for r, server in zip(spec_rows, ("server", "server_pipelined")):
         r.update(launches=spec["oneshot"], verify_launches=spec["verify"],
                  draft_launches=spec["draft"],
@@ -5998,7 +6187,7 @@ def main() -> int:
     log(f"phase 13 multichip: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows + int8_rows + beam_rows + spec_rows + dsp_rows:
+    for r in rows + int8_rows + beam_rows + spec_rows + [multi_row] + dsp_rows:
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
@@ -6032,7 +6221,10 @@ def main() -> int:
                                                "oneshot_int8_", "t512_",
                                                "draft_bf16_")
                         for name in ("ms", "plain_ms", "bound_ms",
-                                     "all_keys_bound_ms", "library_ms"))):
+                                     "all_keys_bound_ms", "library_ms")), *(
+                        pre + name for pre in ("", "g1_", "spec8_", "spec1_")
+                        for name in ("per_query_ms", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms"))):
             if key in r:
                 kernels[-1][key] = r[key]
         if "fp32_residual_ms" in r:

@@ -1,7 +1,7 @@
-// Single-query decode attention over the flat [B, T, H*64] caches of the
-// decode step, with two kernels that compute the same function: K4 (one CTA
-// per query streams the keys) and K5 (a thread-block cluster per query
-// splits the keys).
+// Decode attention over the flat [B, T, H*64] caches of the decode step,
+// with two kernels that compute the same function: K4 (one CTA per query
+// streams the keys) and K5 (a thread-block cluster per query, or per row
+// for its S queries, splits the keys).
 //
 // Replaces two TPU kernels:
 //   openhush_tpu/ops/decode_attention.py:decode_cross_attend (body _kernel),
@@ -96,6 +96,50 @@
 // int32) once the cluster barrier's release by every rank has reached it.
 // The result is the same on every launch.
 //
+// K5's multi-query mode (S > 1 queries a row, no causal offset: a beam
+// group's K beams folded into its row's queries, a speculative verify
+// block, a prefill's cross-attention) computes the function of the JAX
+// model's _attend_decode_flat_multi (openhush_tpu/models/whisper/model.py:
+// 677, XLA einsums over the cache read once for all S queries), on K5 in
+// place of S clusters per row that each read the row's keys
+// (decode_attention_multi_kernel). Its bound is
+// still bytes: a row's keys, values and scales once, whatever S (G=4 beam
+// groups of K=5: 16.3 MB, 0.0049 ms at 3.35 TB/s). One cluster takes (G
+// heads, row): each rank loads its slice once, takes every query's scores
+// from that copy (the dots of int8 levels by dp4a, integer-exact; the
+// query levels of a thread's 16 columns held in registers), and runs each
+// exchange once for all of a block's (query, head) pairs (S*G values a
+// rank in one round of st.async on one mbarrier phase; both heads of a
+// query in one butterfly). V follows K into the same slots. The int8 value
+// sum is packed: each quad of rows' column words are transposed to a word
+// a column (four byte permutes a word) and summed by dp4a against each
+// query's prob levels of those rows, packed as bytes after the softmax,
+// so a thread holds 4 sums a query, not 16. Each query keeps the
+// arithmetic of a launch of it alone (the same entries per thread, the same
+// reductions in the same order, the same rank order; the int8 sums are
+// exact), so a multi-query launch gives, query by query, the bits of S
+// single-query launches. The kernel is compiled for each block size SQ =
+// min(S, S_MAX) (S_MAX = 6: S*H <= 128 at large-v3's 20 heads), so no
+// query of a block is guarded: a guard per query put each query's chain in
+// a basic block of its own and the block's queries ran one after another
+// (PERF.md). Above S_MAX the cluster walks its queries in blocks of S_MAX
+// over the same slice, V then in a second slice and the ranks' sums in two
+// buffers, the last block repeating the row's last query where it is short
+// (and writing nothing for it); the exchanges' mbarriers go through a phase
+// a block, re-armed right after their wait, before the rank sends what
+// lets the others start the next block. A CTA of one cluster carries all
+// of a block's queries on 128 threads, which serialises their chains: at
+// batch 1 (80 CTAs on 132 SMs, a warp a scheduler) that lost to the
+// per-query grid. So where the grid leaves SMs idle (B * H/G * 8 <= the SM
+// count) the CTA is SQ groups of 128 threads, a group a query, each
+// group's thread vt taking the per-query kernel's thread vt's entries; the
+// slice still loads once (group 0 copies it, a CTA barrier shares it).
+// S = 1 and causal blocks keep the per-query kernel
+// (decode_attention_split_kernel) as it was: the multi-query code at S = 1
+// measured slower there (PERF.md), and the two give the same bits query by
+// query. An int8 mma.sync (m16n8k32) score pass measured 2-3% faster at B=4
+// and 8, 8% slower at B=1, and is not used (PERF.md).
+//
 // With int8 K/V and an even head count a cluster takes two adjacent heads
 // (G = 2; their rows and scales lie side by side). An H100 holds 124
 // clusters of 8 at once at up to 28 KB of shared memory a CTA, 92 at the
@@ -126,7 +170,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int STAGES = 4;                     // K4: the ring's groups of passes
 constexpr int TAB_LOADS = 4;                  // K4's beam mode: table bytes a thread
 constexpr int PASS_BYTES = THREADS * 16;      // K4: a pass, 16 B per thread
-constexpr int CLUSTER = 8;                    // K5: CTAs per query
+constexpr int CLUSTER = 8;                    // K5: CTAs per query (per row, multi)
+constexpr int S_MAX = 6;                      // K5's multi-query mode: a block's queries
 constexpr size_t MAX_SMEM = 200 * 1024;       // K4: dynamic shared memory
 constexpr size_t MAX_SMEM_SPLIT = 200 * 1024; // K5: a slice's rows, sums and scores
 
@@ -199,33 +244,53 @@ __device__ __forceinline__ float query_elem(const QO* qp) {
   return threadIdx.x < G * HEAD_DIM ? load_f32(qp + threadIdx.x) : 0.f;
 }
 
-// The queries of G adjacent heads, from query_elem on each thread, into
-// shared memory: their fp32 values and, in QUANT mode, each head's int8
-// levels (four to a word) and scale, warp g taking head g:
+// Element vt < G*64 of queries s0, ..., s0 + N - 1 of a row (qp: its query
+// 0; queries HD elements apart) as fp32, 0 for vt >= G*64; a query past
+// s_last is taken as s_last (a block past the row's last query repeats it
+// and writes nothing).
+template <int G, int N, typename QO>
+__device__ __forceinline__ void query_elems(const QO* qp, int HD, int s0, int s_last, int vt,
+                                            float (&qv)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    qv[j] = vt < G * HEAD_DIM ? load_f32(qp + (long long)min(s0 + j, s_last) * HD + vt) : 0.f;
+}
+
+// A group's N queries sg, ..., sg + N - 1 of a block (the per-query
+// kernel: N = 1, sg = 0, vt = threadIdx.x), from query_elem(s) on each of
+// its threads (vt: the thread in the group), into shared memory: their
+// fp32 values (query s, head g at qs[(s*G + g) * 64]) and, in QUANT mode,
+// each (query, head)'s int8 levels (four to a word, at q8w[(s*G + g) *
+// 16]) and scale (qscale_s[s*G + g]), a warp of the group taking each
+// (query, head) in turn:
 //   qscale = max(max|q_h|, 1e-10) / 127;  q8 = clip(rint(q_h / qscale)).
 // Every thread calls it.
-template <bool QUANT, int G>
-__device__ __forceinline__ void stage_query(float qv, float* qs, int* q8w, float* qscale_s) {
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  if (threadIdx.x < G * HEAD_DIM) qs[threadIdx.x] = qv;
+template <bool QUANT, int G, int N>
+__device__ __forceinline__ void stage_queries(const float (&qv)[N], int sg, int vt, float* qs,
+                                              int* q8w, float* qscale_s) {
+  const int lane = vt & 31, warp = vt >> 5;
+  if (vt < G * HEAD_DIM)
+#pragma unroll
+    for (int j = 0; j < N; ++j) qs[(sg + j) * G * HEAD_DIM + vt] = qv[j];
   __syncthreads();
-  if constexpr (QUANT) if (g < G) {
-    const float* qh = qs + g * HEAD_DIM;
-    float m = fmaxf(fabsf(qh[lane]), fabsf(qh[lane + 32]));
+  if constexpr (QUANT)
+    for (int pr = sg * G + warp; pr < (sg + N) * G; pr += WARPS) {
+      const float* qh = qs + pr * HEAD_DIM;
+      float m = fmaxf(fabsf(qh[lane]), fabsf(qh[lane + 32]));
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float qscale = fmaxf(m, 1e-10f) / 127.0f;
-    if (lane == 0) qscale_s[g] = qscale;
-    if (lane < HEAD_DIM / 4) {
-      int w = 0;
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float qscale = fmaxf(m, 1e-10f) / 127.0f;
+      if (lane == 0) qscale_s[pr] = qscale;
+      if (lane < HEAD_DIM / 4) {
+        int w = 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float r = fminf(fmaxf(rintf(qh[4 * lane + j] / qscale), -127.f), 127.f);
-        w |= ((int)r & 0xff) << (8 * j);
+        for (int j = 0; j < 4; ++j) {
+          const float r = fminf(fmaxf(rintf(qh[4 * lane + j] / qscale), -127.f), 127.f);
+          w |= ((int)r & 0xff) << (8 * j);
+        }
+        q8w[pr * (HEAD_DIM / 4) + lane] = w;
       }
-      q8w[g * (HEAD_DIM / 4) + lane] = w;
     }
-  }
   __syncthreads();
 }
 
@@ -256,6 +321,26 @@ __device__ __forceinline__ float piece_dot(const int4& ch, int c, const float* q
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     return acc;
   }
+}
+
+// piece_dot with this piece's four words of query levels (QUANT) in
+// registers: the multi-query kernel holds each query's.
+template <typename KV, bool QUANT>
+__device__ __forceinline__ float piece_dot_regs(const int4& ch, int c, const float* qs,
+                                                const int (&q8)[4]) {
+  using L = Layout<KV>;
+  if constexpr (QUANT) {
+    int acc = 0;
+    acc = __dp4a(ch.x, q8[0], acc);
+    acc = __dp4a(ch.y, q8[1], acc);
+    acc = __dp4a(ch.z, q8[2], acc);
+    acc = __dp4a(ch.w, q8[3], acc);
+#pragma unroll
+    for (int off = L::CHUNKS / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return (float)acc;
+  }
+  return piece_dot<KV, false>(ch, c, qs, nullptr);
 }
 
 // The score of key t: ((dot * ks_t) * qscale) * sm_scale in QUANT mode.
@@ -702,66 +787,77 @@ __device__ __forceinline__ void st_async(uint32_t remote, uint32_t bits, uint32_
                ::"r"(remote), "r"(bits), "r"(remote_bar) : "memory");
 }
 
-// v[g] for a g known only at run time, without indexing a register array.
-template <int G>
-__device__ __forceinline__ float pick(const float (&v)[G], int g) {
+// v[i] for an i known only at run time, without indexing a register array.
+template <int N>
+__device__ __forceinline__ float pick(const float (&v)[N], int i) {
   float x = v[0];
 #pragma unroll
-  for (int i = 1; i < G; ++i)
-    if (g == i) x = v[i];
+  for (int j = 1; j < N; ++j)
+    if (i == j) x = v[j];
   return x;
 }
 
-// G values: x at g, `identity` elsewhere.
-template <int G>
-__device__ __forceinline__ void at_only(float (&v)[G], int g, float x, float identity) {
+// The CTA's reduction by `op` of a block's SQ*G (query, head) values,
+// each thread holding x[s] for one head of each query: lane bit SPLIT
+// tells the G = 2 heads apart (lane l holds head 0 or 1 as l & SPLIT is 0
+// or not). A butterfly of shuffles within each warp that skips offset
+// SPLIT leaves each lane its head's total over the warp, in the order of a
+// butterfly over all 32 lanes with the other head's lanes at op's identity
+// (x op identity is x, exactly); then the warps in order. Every thread
+// gets v[s*G + head]. `red` holds WARPS * SQ * G floats (a group of
+// THREADS threads' own).
+template <int SQ, int G, int SPLIT, typename Op>
+__device__ __forceinline__ void block_reduce_heads(const float (&x)[SQ], float (&v)[SQ * G],
+                                                   float* red, Op op) {
+  constexpr int NV = SQ * G;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x % THREADS) >> 5;   // in the group
+  float y[SQ];
 #pragma unroll
-  for (int i = 0; i < G; ++i) v[i] = i == g ? x : identity;
-}
-
-// The CTA's reduction by `op` of each of G values: shuffles within each
-// warp, then the warps in order; every thread gets the G results. `red` holds
-// WARPS * G floats.
-template <int G, typename Op>
-__device__ __forceinline__ void block_reduce(float (&v)[G], float* red, Op op) {
+  for (int s = 0; s < SQ; ++s) y[s] = x[s];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int off = 16; off > 0; off >>= 1)
+    if (G == 1 || off != SPLIT)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[g] = op(v[g], __shfl_xor_sync(0xffffffffu, v[g], off));
-    if ((threadIdx.x & 31) == 0) red[(threadIdx.x >> 5) * G + g] = v[g];
-  }
+      for (int s = 0; s < SQ; ++s) y[s] = op(y[s], __shfl_xor_sync(0xffffffffu, y[s], off));
+  if (lane == 0 || (G == 2 && lane == SPLIT))
+#pragma unroll
+    for (int s = 0; s < SQ; ++s) red[warp * NV + s * G + (lane == 0 ? 0 : 1)] = y[s];
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    v[g] = red[g];
+  for (int i = 0; i < NV; ++i) {
+    v[i] = red[i];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) v[g] = op(v[g], red[w * G + g]);
+    for (int w = 1; w < WARPS; ++w) v[i] = op(v[i], red[w * NV + i]);
   }
   __syncthreads();
 }
 
-// Every rank's G values x (the same on all of this CTA's threads) land in
-// slot[rank * G + g] of every rank's copy of `slot`, counted on that rank's
-// `bar`: thread g * CLUSTER + r writes value g to rank r. A rank has all
-// CLUSTER * G values once its `bar` completes its phase.
-template <int G>
-__device__ __forceinline__ void push_all(float* slot, uint64_t* bar, int rank, const float (&x)[G]) {
-  if (threadIdx.x < CLUSTER * G) {
-    const int dst = threadIdx.x % CLUSTER, g = threadIdx.x / CLUSTER;
-    st_async(at_rank(slot + rank * G + g, dst), __float_as_uint(pick(x, g)), at_rank(bar, dst));
+// A group of THREADS threads' (vt: the thread in it) N of the NV values a
+// rank sends (the same on all of its threads) land in slot[rank * NV + base
+// + i] of every rank's copy of `slot`, counted on that rank's `bar`: thread
+// i * CLUSTER + r of the group writes value i to rank r. A rank has all
+// CLUSTER * NV values once its `bar` completes its phase.
+template <int N>
+__device__ __forceinline__ void push_all(float* slot, int NV, int base, uint64_t* bar, int rank,
+                                         const float (&x)[N], int vt) {
+  if (vt < CLUSTER * N) {
+    const int dst = vt % CLUSTER, i = vt / CLUSTER;
+    st_async(at_rank(slot + rank * NV + base + i, dst), __float_as_uint(pick(x, i)),
+             at_rank(bar, dst));
   }
 }
 
-// Each head's values from the ranks, in rank order, so that every rank gets
-// the same numbers.
-template <int G, typename Op>
-__device__ __forceinline__ void rank_order(const float* slot, float init, Op op, float (&out)[G]) {
+// Values base .. base + N - 1 of the NV each rank sent, each from the ranks
+// in rank order, so that every rank gets the same numbers.
+template <int N, typename Op>
+__device__ __forceinline__ void rank_order(const float* slot, int NV, int base, float init, Op op,
+                                           float (&out)[N]) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int i = 0; i < N; ++i) {
     float x = init;
 #pragma unroll
-    for (int r = 0; r < CLUSTER; ++r) x = op(x, slot[r * G + g]);
-    out[g] = x;
+    for (int r = 0; r < CLUSTER; ++r) x = op(x, slot[r * NV + base + i]);
+    out[i] = x;
   }
 }
 
@@ -773,17 +869,41 @@ struct AddOp {
 };
 
 // K5's dynamic shared memory, in bytes, for slices of at most per_cap rows
-// of G heads: the rows (K's, then V's in the same slots), the value sums by
-// warp and, on rank 0, every rank's sum, then the scores, ks and vs.
+// of G heads and blocks of at most nq queries: the rows (K's, then V's in
+// the same slots; V's in a second slice when the cluster walks several
+// blocks), each query's value sums by warp (packed: by quad of rows) and,
+// on rank 0, every rank's (two buffers when walking), then each query's
+// scores, ks and vs and, packed (the multi-query mode's int8 value pass),
+// each (query, head)'s prob levels as bytes, four rows to a word. Packed
+// slices are padded to whole quads of rows.
 struct SplitSmem {
-  int sums, sc, ks, vs, total;
-  __host__ __device__ SplitSmem(int per_cap, int row_bytes, int G)
-      : sums(per_cap * row_bytes * G),
-        sc(sums + (WARPS + CLUSTER) * G * HEAD_DIM * 4),
-        ks(sc + per_cap * G * 4),
+  int vrows, sums, partials, sc, ks, vs, p8, total;
+  __host__ __device__ SplitSmem(int per_cap, int row_bytes, int G, int nq, bool walk, bool packed)
+      : vrows(walk ? quads(per_cap, packed) * row_bytes * G : 0),
+        sums((walk ? 2 : 1) * quads(per_cap, packed) * row_bytes * G),
+        partials(sums + nq * (packed ? 4 * THREADS : WARPS * G * HEAD_DIM) * 4),
+        sc(partials + (walk ? 2 : 1) * CLUSTER * nq * G * HEAD_DIM * 4),
+        ks(sc + nq * per_cap * G * 4),
         vs(ks + per_cap * G * 4),
-        total(vs + per_cap * G * 4) {}
+        p8(vs + per_cap * G * 4),
+        total(p8 + (packed ? nq * G * quads(per_cap, true) : 0)) {}
+  // Rows, rounded up to whole quads when packed.
+  __host__ __device__ static int quads(int rows, bool packed) {
+    return packed ? (rows + 3) / 4 * 4 : rows;
+  }
 };
+
+// Four words a_i, the same 4 columns of rows i = 0..3 (a byte a column),
+// as four words c_j, the 4 rows of column j (a byte a row): a 4x4 byte
+// transpose, so that dp4a sums over rows.
+__device__ __forceinline__ void transpose4(int a0, int a1, int a2, int a3, int (&c)[4]) {
+  const int t0 = __byte_perm(a0, a1, 0x5140), t1 = __byte_perm(a0, a1, 0x7362);
+  const int t2 = __byte_perm(a2, a3, 0x5140), t3 = __byte_perm(a2, a3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
 
 // K5: a cluster of CLUSTER CTAs per (G adjacent heads, query, row); rank r
 // takes keys [r*per, (r+1)*per) of the row's n (per = ceil(n / CLUSTER); a
@@ -805,7 +925,7 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int per_cap = (T + CLUSTER - 1) / CLUSTER;
-  const SplitSmem lay(per_cap, HEAD_DIM * (int)sizeof(KV), G);
+  const SplitSmem lay(per_cap, HEAD_DIM * (int)sizeof(KV), G, 1, false, false);
   extern __shared__ __align__(16) unsigned char smem[];
   int4* rows = reinterpret_cast<int4*>(smem);                  // [per_cap][RC]
   float* sc = reinterpret_cast<float*>(smem + lay.sc);          // [per_cap][G]
@@ -875,7 +995,7 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
   }
   cluster_arrive_relaxed();         // this rank's mbarriers are initialised
   // (Its __syncthreads also make them visible to this CTA's threads.)
-  stage_query<QUANT, G>(qv, qs, q8w, qscale_s);
+  stage_queries<QUANT, G, 1>({qv}, 0, threadIdx.x, qs, q8w, qscale_s);
   const float qscale = QUANT ? qscale_s[g] : 1.f;
 
   // -- scores of the slice, and the cluster's max. As a thread takes the
@@ -900,12 +1020,11 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
   cp_async_commit();
   __syncthreads();
   float m[G];
-  at_only(m, g, lmax, -FLT_MAX);
-  block_reduce(m, red, MaxOp());
+  block_reduce_heads<1, G, L::CHUNKS>({lmax}, m, red, MaxOp());   // head g = lane's bit CHUNKS
   cluster_wait();                   // every rank's mbarriers are initialised
-  push_all(xmax, &got_max, rank, m);
+  push_all(xmax, G, 0, &got_max, rank, m, threadIdx.x);
   oh_tma::mbar_wait_cluster(&got_max, 0);
-  rank_order(xmax, -FLT_MAX, MaxOp(), m);
+  rank_order(xmax, G, 0, -FLT_MAX, MaxOp(), m);
   const float m_s = pick(m, gs);
 
   // -- softmax: l summed over the ranks in rank order (deterministic); entry
@@ -917,11 +1036,10 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
     lsum += e;
   }
   float l[G];
-  at_only(l, gs, lsum, 0.f);
-  block_reduce(l, red, AddOp());
-  push_all(xsum, &got_sum, rank, l);
+  block_reduce_heads<1, G, 1>({lsum}, l, red, AddOp());           // head gs = lane's bit 0
+  push_all(xsum, G, 0, &got_sum, rank, l, threadIdx.x);
   oh_tma::mbar_wait_cluster(&got_sum, 0);
-  rank_order(xsum, 0.f, AddOp(), l);
+  rank_order(xsum, G, 0, 0.f, AddOp(), l);
   const float l_s = pick(l, gs);
   float pscale[G];
 #pragma unroll
@@ -933,11 +1051,10 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
       sc[i] = pv;
       pmax = fmaxf(pmax, pv);
     }
-    at_only(pscale, gs, pmax, 0.f);
-    block_reduce(pscale, red, MaxOp());
-    push_all(xpv, &got_pv, rank, pscale);
+    block_reduce_heads<1, G, 1>({pmax}, pscale, red, MaxOp());
+    push_all(xpv, G, 0, &got_pv, rank, pscale, threadIdx.x);
     oh_tma::mbar_wait_cluster(&got_pv, 0);
-    rank_order(xpv, 0.f, MaxOp(), pscale);
+    rank_order(xpv, G, 0, 0.f, MaxOp(), pscale);
 #pragma unroll
     for (int i = 0; i < G; ++i) pscale[i] = fmaxf(pscale[i], 1e-20f) / 127.0f;
     const float ps = pick(pscale, gs);
@@ -1004,13 +1121,396 @@ decode_attention_split_kernel(const QO* __restrict__ q, const KV* __restrict__ k
   }
 }
 
-// K5's dynamic shared memory: a slice's rows of G heads, their value sums,
-// scores and scales.
-template <typename KV>
-size_t smem_split(int T, int G) {
-  return (size_t)SplitSmem((T + CLUSTER - 1) / CLUSTER, HEAD_DIM * (int)sizeof(KV), G).total;
+// K5's multi-query mode (see the header): a cluster of CLUSTER CTAs per
+// (G adjacent heads, row), which takes the row's S >= 2 queries (no causal
+// offset: each sees the row's n keys) in blocks of SQ over one copy of the
+// slice. Rank r takes keys [r*per, (r+1)*per) of the row's n (per =
+// ceil(n / CLUSTER); a slice may be empty), as the per-query kernel does.
+// A CTA is SQ / QG groups of THREADS threads, group j taking queries
+// j*QG .. j*QG + QG - 1 of a block; thread vt of a group takes the entries
+// thread vt of a per-query CTA takes, so each query keeps that kernel's
+// order. QG = SQ: one group holds every query (a thread carries SQ
+// queries); QG = 1: a group a query, for grids that leave SMs idle.
+template <typename KV, typename QO, bool QUANT, int G, int SQ, int QG>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS * (SQ / QG))
+decode_attention_multi_kernel(const QO* __restrict__ q, const KV* __restrict__ k,
+                              const KV* __restrict__ v, const float* __restrict__ ks,
+                              const float* __restrict__ vs, const int* __restrict__ lengths,
+                              int len_default, QO* __restrict__ out,
+                              float* __restrict__ probs, int S, int H, int T,
+                              float sm_scale) {
+  using L = Layout<KV>;
+  using Acc = typename std::conditional<QUANT, int, float>::type;   // value sums
+  constexpr int NG = SQ / QG;           // groups of THREADS threads
+  constexpr int RC = G * L::CHUNKS;     // threads per row of the CTA's heads
+  constexpr int RPP = THREADS / RC;     // rows per pass
+  constexpr int GD = G * HEAD_DIM;      // the heads' columns
+  constexpr int NV = SQ * G;            // a block's (query, head) pairs
+  constexpr int NVG = QG * G;           // a group's
+  static_assert(SQ >= 2 && SQ % QG == 0 && RC <= 32 && GD <= THREADS &&
+                CLUSTER * NVG <= THREADS, "a row's pieces within a warp; one round an exchange");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int h0 = blockIdx.y * G, b = blockIdx.z;
+  const bool walk = S > SQ;
+  const int per_cap = (T + CLUSTER - 1) / CLUSTER;
+  const SplitSmem lay(per_cap, HEAD_DIM * (int)sizeof(KV), G, SQ, walk, QUANT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* rows = reinterpret_cast<int4*>(smem);                  // [per_cap][RC]
+  int4* vrows = reinterpret_cast<int4*>(smem + lay.vrows);      // V's: rows unless walking
+  Acc* part = reinterpret_cast<Acc*>(smem + lay.sums);          // [SQ][WARPS or quads][GD]
+  Acc* partials = reinterpret_cast<Acc*>(smem + lay.partials);  // rank 0's [CLUSTER][SQ][GD]
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);          // [SQ][per_cap * G]
+  float* kss = reinterpret_cast<float*>(smem + lay.ks);         // [per_cap][G]
+  float* vss = reinterpret_cast<float*>(smem + lay.vs);         // [per_cap][G]
+  int8_t* p8b = reinterpret_cast<int8_t*>(smem + lay.p8);       // QUANT: [SQ][G][quads]
+  const int QB = SplitSmem::quads(per_cap, true);               // a (query, head)'s bytes
+  __shared__ float qs[SQ * GD];
+  __shared__ int q8w[SQ * GD / 4];
+  __shared__ float red[WARPS * NV];     // [NG][WARPS][NVG]
+  __shared__ float qscale_s[NV];
+  // Every rank's max, sum and max(p*vs) per (query, head), written here by
+  // each rank, and the mbarriers that count their arrival.
+  __shared__ float xmax[CLUSTER * NV], xsum[CLUSTER * NV], xpv[CLUSTER * NV];
+  __shared__ __align__(8) uint64_t got_max, got_sum, got_pv;
+
+  const int HD = H * HEAD_DIM;
+  const int grp = threadIdx.x / THREADS, vt = threadIdx.x % THREADS;
+  const int sg = grp * QG;          // the group's first query of a block
+  int n = lengths ? lengths[b] : len_default;
+  n = n < T ? n : T;
+  if (n <= 0) {                     // the same for the whole cluster
+    if (rank == 0)
+      for (int s = grp; s < S; s += NG) {
+        if (vt < GD)
+          store_f32(out + ((long long)b * S + s) * HD + h0 * HEAD_DIM + vt, 0.f);
+        if (probs)                  // head h0 + g's probs at g * T
+          for (int t = vt; t < G * T; t += THREADS)
+            probs[(((long long)b * S + s) * H + h0) * T + t] = 0.f;
+      }
+    return;
+  }
+  const int per = (n + CLUSTER - 1) / CLUSTER;
+  const int t0 = min(rank * per, n);
+  const int cnt = min(per, n - t0);
+  const long long row0 = (long long)b * T + t0;
+  const KV* kb = k + row0 * HD + h0 * HEAD_DIM;
+  const KV* vb = v + row0 * HD + h0 * HEAD_DIM;
+  const float* ksb = QUANT ? ks + row0 * H + h0 : nullptr;
+  const float* vsb = QUANT ? vs + row0 * H + h0 : nullptr;
+  const int c = vt % RC;            // this thread's 16 B of a row: in head
+  const int g = c / L::CHUNKS;      // h0 + g, its column chunk hc
+  const int hc = c % L::CHUNKS;
+  const int r0 = vt / RC;
+  const int gs = vt % G;            // the head of this thread's softmax entries
+  const int warp = vt / 32, lane = vt % 32;   // in the group
+  const int SCW = per_cap * G;      // a query's scores
+  float* gred = red + grp * WARPS * NVG;
+  constexpr uint32_t TX = CLUSTER * NV * 4;   // an exchange's bytes
+
+  // -- the first block's queries first, ahead of the slice's; then group
+  //    0 puts the slice's K and scales (walking: and V, into its own
+  //    slice) in flight at once, each thread copying the pieces the
+  //    per-query kernel's thread vt copies. With one group no barrier
+  //    guards the buffers (every thread reads only what it copied) ------
+  float qv[QG];
+  const QO* qrow = q + (long long)b * S * HD + h0 * HEAD_DIM;
+  query_elems<G, QG>(qrow, HD, sg, S - 1, vt, qv);
+  if (grp == 0) {
+    for (int r = r0; r < cnt; r += RPP) {
+      cp_async16(rows + r * RC + c, kb + (long long)r * HD + c * L::VALS);
+      if (QUANT && hc == 0) cp_async4(kss + r * G + g, ksb + (long long)r * H + g);
+      if (walk) cp_async16(vrows + r * RC + c, vb + (long long)r * HD + c * L::VALS);
+    }
+    if constexpr (QUANT)
+      for (int i = vt; i < cnt * G; i += THREADS)
+        cp_async4(vss + i, vsb + (long long)(i / G) * H + i % G);
+    cp_async_commit();
+  }
+  if (threadIdx.x == 0) {
+    oh_tma::mbar_init(&got_max, 1);
+    oh_tma::mbar_init(&got_sum, 1);
+    if (QUANT) oh_tma::mbar_init(&got_pv, 1);
+    oh_tma::mbar_init_fence();
+    oh_tma::mbar_expect_tx(&got_max, TX);
+    oh_tma::mbar_expect_tx(&got_sum, TX);
+    if (QUANT) oh_tma::mbar_expect_tx(&got_pv, TX);
+  }
+  cluster_arrive_relaxed();         // this rank's mbarriers are initialised
+  // (The __syncthreads in stage_queries also make them visible to this
+  // CTA's threads.)
+
+  // Blocks of at most SQ queries, each with the arithmetic of a launch of
+  // each of its queries alone: the same entries per thread, the same
+  // reductions in the same order. An exchange's slots and mbarrier serve
+  // every block (phase blk & 1): a rank writes block blk + 1's values only
+  // after every rank has sent it block blk's last exchange, which each
+  // sends after reading its slots and re-arming its mbarriers.
+  for (int s0 = 0, blk = 0; s0 < S; s0 += SQ, ++blk) {
+    const int nq = min(SQ, S - s0);   // the block's queries to write
+    const int ph = blk & 1;
+    const bool last = s0 + SQ >= S;
+    if (blk > 0) query_elems<G, QG>(qrow, HD, s0 + sg, S - 1, vt, qv);
+    stage_queries<QUANT, G, QG>(qv, sg, vt, qs, q8w, qscale_s);
+
+    // -- scores of the slice, and the cluster's max. One group: as a
+    //    thread takes the scores of a piece of K, it asks for V's piece of
+    //    the same row and columns into that slot, so V's loads run under
+    //    the exchanges and the CTA holds one slice of rows, not two; with
+    //    several, group 0 asks for V once every group has read K --------
+    if (blk == 0) {
+      cp_async_wait_all();          // group 0's K pieces and scales
+      if (NG > 1) __syncthreads();  // ... for every group
+    }
+    // The levels of this thread's 16 columns of each query, and their scales.
+    int q8r[QG][4];
+    float qsc[QG];
+#pragma unroll
+    for (int j = 0; j < QG; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        q8r[j][i] = QUANT ? q8w[((sg + j) * G + g) * (HEAD_DIM / 4) + 4 * hc + i] : 0;
+      qsc[j] = QUANT ? qscale_s[(sg + j) * G + g] : 1.f;
+    }
+    float lmax[QG];
+#pragma unroll
+    for (int j = 0; j < QG; ++j) lmax[j] = -FLT_MAX;
+    for (int rb = 0; rb < cnt; rb += RPP) {
+      const int r = rb + r0;
+      const int4 ch = r < cnt ? rows[r * RC + c] : make_int4(0, 0, 0, 0);
+      float dot[QG];
+#pragma unroll
+      for (int j = 0; j < QG; ++j)
+        dot[j] = piece_dot_regs<KV, QUANT>(ch, hc, qs + (sg + j) * GD + g * HEAD_DIM, q8r[j]);
+      if (NG == 1 && !walk && r < cnt)   // (the slot's read returned before the dots' shuffles)
+        cp_async16(rows + r * RC + c, vb + (long long)r * HD + c * L::VALS);
+      if (hc == 0 && r < cnt)
+#pragma unroll
+        for (int j = 0; j < QG; ++j) {
+          const float score = score_of<QUANT>(dot[j], kss + r * G + g, qsc[j], sm_scale);
+          sc[(sg + j) * SCW + r * G + g] = score;
+          lmax[j] = fmaxf(lmax[j], score);
+        }
+    }
+    if (NG == 1 && !walk) cp_async_commit();
+    __syncthreads();
+    if (NG > 1 && !walk && blk == 0 && grp == 0) {
+      for (int r = r0; r < cnt; r += RPP)
+        cp_async16(rows + r * RC + c, vb + (long long)r * HD + c * L::VALS);
+      cp_async_commit();
+    }
+    float m[NVG];
+    block_reduce_heads<QG, G, L::CHUNKS>(lmax, m, gred, MaxOp());   // head g = lane's bit CHUNKS
+    if (blk == 0) cluster_wait();   // every rank's mbarriers are initialised
+    push_all(xmax, NV, sg * G, &got_max, rank, m, vt);
+    oh_tma::mbar_wait_cluster(&got_max, ph);
+    if (!last && threadIdx.x == 0) oh_tma::mbar_expect_tx(&got_max, TX);
+    rank_order(xmax, NV, sg * G, -FLT_MAX, MaxOp(), m);
+    float ms[QG];
+#pragma unroll
+    for (int j = 0; j < QG; ++j) ms[j] = pick(m, j * G + gs);
+
+    // -- softmax: l summed over the ranks in rank order (deterministic);
+    //    entry i of a query's scores is row i / G, head i % G = gs --------
+    float lsum[QG];
+#pragma unroll
+    for (int j = 0; j < QG; ++j) lsum[j] = 0.f;
+    for (int i = vt; i < cnt * G; i += THREADS)
+#pragma unroll
+      for (int j = 0; j < QG; ++j) {
+        float* e_at = sc + (sg + j) * SCW + i;
+        const float e = expf(*e_at - ms[j]);
+        *e_at = e;
+        lsum[j] += e;
+      }
+    float l[NVG];
+    block_reduce_heads<QG, G, 1>(lsum, l, gred, AddOp());           // head gs = lane's bit 0
+    push_all(xsum, NV, sg * G, &got_sum, rank, l, vt);
+    oh_tma::mbar_wait_cluster(&got_sum, ph);
+    if (!last && threadIdx.x == 0) oh_tma::mbar_expect_tx(&got_sum, TX);
+    rank_order(xsum, NV, sg * G, 0.f, AddOp(), l);
+    float ls[QG];
+#pragma unroll
+    for (int j = 0; j < QG; ++j) ls[j] = pick(l, j * G + gs);
+    float pscale[NVG];
+#pragma unroll
+    for (int i = 0; i < NVG; ++i) pscale[i] = 1.f;
+    if constexpr (QUANT) {
+      float pmax[QG];
+#pragma unroll
+      for (int j = 0; j < QG; ++j) pmax[j] = 0.f;
+      for (int i = vt; i < cnt * G; i += THREADS)
+#pragma unroll
+        for (int j = 0; j < QG; ++j) {
+          float* p_at = sc + (sg + j) * SCW + i;
+          const float pv = (*p_at / ls[j]) * vss[i];
+          *p_at = pv;
+          pmax[j] = fmaxf(pmax[j], pv);
+        }
+      block_reduce_heads<QG, G, 1>(pmax, pscale, gred, MaxOp());
+      push_all(xpv, NV, sg * G, &got_pv, rank, pscale, vt);
+      oh_tma::mbar_wait_cluster(&got_pv, ph);
+      if (!last && threadIdx.x == 0) oh_tma::mbar_expect_tx(&got_pv, TX);
+      rank_order(xpv, NV, sg * G, 0.f, MaxOp(), pscale);
+#pragma unroll
+      for (int i = 0; i < NVG; ++i) pscale[i] = fmaxf(pscale[i], 1e-20f) / 127.0f;
+      float ps[QG];
+#pragma unroll
+      for (int j = 0; j < QG; ++j) ps[j] = pick(pscale, j * G + gs);
+      for (int i = vt; i < cnt * G; i += THREADS)
+#pragma unroll
+        for (int j = 0; j < QG; ++j) {
+          float* p_at = sc + (sg + j) * SCW + i;
+          const float p8 = fminf(fmaxf(rintf(*p_at / ps[j]), -127.f), 127.f);
+          *p_at = p8;
+          p8b[((sg + j) * G + gs) * QB + i / G] = (int8_t)p8;
+        }
+      // A last quad's rows past the slice: level 0.
+      for (int i = cnt * G + vt; i < SplitSmem::quads(cnt, true) * G; i += THREADS)
+#pragma unroll
+        for (int j = 0; j < QG; ++j) p8b[((sg + j) * G + gs) * QB + i / G] = 0;
+    } else {
+      for (int i = vt; i < cnt * G; i += THREADS)
+#pragma unroll
+        for (int j = 0; j < QG; ++j)
+          sc[(sg + j) * SCW + i] = round_prob<KV>(sc[(sg + j) * SCW + i] / ls[j]);
+    }
+    if (blk == 0) cp_async_wait_all();   // group 0's V pieces have landed
+    __syncthreads();                // (every thread's, for the quads and the groups)
+    if (probs)                      // the value sum's probs, for checks
+      for (int j = 0; j < QG; ++j) {
+        const int s = sg + j;
+        if (s >= nq) break;
+        float* pb = probs + (((long long)b * S + s0 + s) * H + h0) * T;   // head g at g * T
+        for (int i = vt; i < cnt * G; i += THREADS)
+          pb[(long long)(i % G) * T + t0 + i / G] = sc[s * SCW + i];
+        if (rank == CLUSTER - 1)
+          for (int i = vt; i < (T - n) * G; i += THREADS)
+            pb[(long long)(i % G) * T + n + i / G] = 0.f;
+      }
+
+    // -- values of the slice. QUANT (int32, exact): thread (quad qo, word
+    //    w) takes column word w of the quads of rows qo, qo + QPP, ...,
+    //    each transposed to a word a column (a byte a row), and sums dp4a
+    //    of them with each query's levels of those four rows; the quads'
+    //    sums add in order. Else (fp32, the per-query kernel's order) each
+    //    thread sums its 16 B of columns over its rows for each query, then
+    //    over the warp's rows and the group's warps ------------------------
+    constexpr int NP = QUANT ? 4 * THREADS / GD : WARPS;   // partial sums a column
+    if constexpr (QUANT) {
+      constexpr int WPR = GD / 4;              // words of a row of the heads
+      const int w = vt % WPR, qo = vt / WPR;
+      const int* vw = reinterpret_cast<const int*>(vrows);
+      const int* pw = reinterpret_cast<const int*>(p8b) + (w / (HEAD_DIM / 4)) * (QB / 4);
+      int acc[QG][4];
+#pragma unroll
+      for (int j = 0; j < QG; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+      for (int m4 = qo; m4 < (cnt + 3) / 4; m4 += NP) {
+        int col[4];
+        transpose4(vw[(4 * m4) * WPR + w], vw[(4 * m4 + 1) * WPR + w],
+                   vw[(4 * m4 + 2) * WPR + w], vw[(4 * m4 + 3) * WPR + w], col);
+#pragma unroll
+        for (int j = 0; j < QG; ++j) {
+          const int p4 = pw[(sg + j) * G * (QB / 4) + m4];   // this head's levels of the quad
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] = __dp4a(col[i], p4, acc[j][i]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QG; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[((sg + j) * NP + qo) * GD + 4 * w + i] = acc[j][i];
+    } else {
+      Acc acc[QG][L::VALS];
+#pragma unroll
+      for (int j = 0; j < QG; ++j)
+#pragma unroll
+        for (int i = 0; i < L::VALS; ++i) acc[j][i] = 0;
+      for (int r = r0; r < cnt; r += RPP) {
+        const int4 ch = vrows[r * RC + c];
+#pragma unroll
+        for (int j = 0; j < QG; ++j) {
+          const float p = sc[(sg + j) * SCW + r * G + g];
+#pragma unroll
+          for (int i = 0; i < L::VALS; ++i) acc[j][i] = fmaf(p, elem<KV>(ch, i), acc[j][i]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QG; ++j) {
+#pragma unroll
+        for (int off = RC; off < 32; off <<= 1)
+#pragma unroll
+          for (int i = 0; i < L::VALS; ++i)
+            acc[j][i] += __shfl_xor_sync(0xffffffffu, acc[j][i], off);
+        if (lane < RC)              // lane c holds chunk c's warp sum
+#pragma unroll
+          for (int i = 0; i < L::VALS; ++i)
+            part[((sg + j) * WARPS + warp) * GD + c * L::VALS + i] = acc[j][i];
+      }
+    }
+    __syncthreads();
+    // This rank's sums of the group's queries, written to rank 0 (into
+    // buffer ph when walking: a rank writes block blk + 2's only after the
+    // cluster barrier of block blk + 1, at which rank 0 arrives once it has
+    // read block blk's).
+    Acc* pbuf = partials + (size_t)(walk ? ph : 0) * CLUSTER * SQ * GD;
+    for (int i = vt; i < QG * GD; i += THREADS) {
+      const int s = sg + i / GD, col = i % GD;
+      if (s >= nq) break;
+      Acc total = 0;
+#pragma unroll
+      for (int w = 0; w < NP; ++w) total += part[(s * NP + w) * GD + col];
+      *cluster.map_shared_rank(pbuf + ((size_t)rank * SQ + s) * GD + col, 0) = total;
+    }
+    // The cluster barrier: each rank's arrival releases its sums to rank 0,
+    // which waits for all of them. After the last block the other ranks
+    // exit without waiting: each has received every value sent to it, and
+    // no rank touches their shared memory after this.
+    cluster_arrive();
+    if (rank != 0) {
+      if (last) return;
+      cluster_wait();
+      continue;
+    }
+    cluster_wait();
+    for (int i = vt; i < QG * GD; i += THREADS) {
+      const int s = sg + i / GD, col = i % GD;
+      if (s >= nq) break;
+      Acc total = 0;                // int32 exact; fp32 in rank order
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) total += pbuf[((size_t)r * SQ + s) * GD + col];
+      store_f32(out + ((long long)b * S + s0 + s) * HD + h0 * HEAD_DIM + col,
+                QUANT ? (float)total * pick(pscale, (i / GD) * G + col / HEAD_DIM)
+                      : (float)total);
+    }
+  }
 }
 
+// The current card's SM count (read once a device).
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
+
+// K5's dynamic shared memory: a slice's rows of G heads, the value sums,
+// scores and scales of a block of queries (multi: min(S, S_MAX) queries, a
+// second slice and sums buffer when S > S_MAX, packed levels for QUANT;
+// else one query).
+template <typename KV, bool QUANT>
+size_t smem_split(int T, int G, int S, bool multi) {
+  return (size_t)SplitSmem((T + CLUSTER - 1) / CLUSTER, HEAD_DIM * (int)sizeof(KV), G,
+                           multi ? (S < S_MAX ? S : S_MAX) : 1, multi && S > S_MAX,
+                           QUANT && multi).total;
+}
+
+// The per-query kernel: one cluster per (G heads, query, row).
 template <typename KV, typename QO, bool QUANT, int G>
 int launch_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                  const void* lengths, int len_default, int causal, void* out, void* probs,
@@ -1020,9 +1520,26 @@ int launch_split(const void* q, const void* k, const void* v, const void* ks, co
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM_SPLIT);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(CLUSTER, H / G, S * B);
-  kernel<<<grid, THREADS, smem_split<KV>(T, G), st>>>(
+  kernel<<<grid, THREADS, smem_split<KV, QUANT>(T, G, S, false), st>>>(
       (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
       (const int*)lengths, len_default, causal, (QO*)out, (float*)probs, S, H, T, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// The multi-query kernel: one cluster per (G heads, row), blocks of SQ
+// queries, QG of them a group of THREADS threads.
+template <typename KV, typename QO, bool QUANT, int G, int SQ, int QG>
+int launch_multi(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                 const void* lengths, int len_default, void* out, void* probs, int B, int S,
+                 int H, int T, float sm_scale, cudaStream_t st) {
+  const auto kernel = decode_attention_multi_kernel<KV, QO, QUANT, G, SQ, QG>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM_SPLIT);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(CLUSTER, H / G, B);
+  kernel<<<grid, THREADS * (SQ / QG), smem_split<KV, QUANT>(T, G, S, true), st>>>(
+      (const QO*)q, (const KV*)k, (const KV*)v, (const float*)ks, (const float*)vs,
+      (const int*)lengths, len_default, (QO*)out, (float*)probs, S, H, T, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1044,25 +1561,68 @@ int launch_direct(const void* q, const void* k, const void* v, const void* ks, c
   return (int)cudaGetLastError();
 }
 
-template <typename KV, typename QO, bool QUANT, bool SPLIT>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* lengths, int len_default, int causal,
-           const void* rows, void* out, void* probs, int B, int S, int H, int T,
-           float sm_scale, cudaStream_t st) {
-  if (B <= 0 || S <= 0 || H <= 0 || T <= 0 ||
-      (SPLIT ? H > 65535 || (long long)S * B > 65535 : S > 65535 || B > 65535))
-    return (int)cudaErrorInvalidValue;
-  if constexpr (SPLIT) {
-    if (rows) return (int)cudaErrorInvalidValue;      // the beam mode is K4's
-    if (smem_split<KV>(T, 1) > MAX_SMEM_SPLIT) return (int)cudaErrorInvalidValue;
-    // int8 K/V: two adjacent heads to a cluster when H is even (see the
-    // header), one head otherwise.
+// K5 with SQ queries a cluster (SQ = 1: a cluster per query; SQ >= 2: the
+// multi-query mode): int8 K/V take two adjacent heads to a cluster when H
+// is even (see the header), others one head.
+template <typename KV, typename QO, bool QUANT, int SQ>
+int launch_heads(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                 const void* lengths, int len_default, int causal, void* out, void* probs,
+                 int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
+  constexpr bool MULTI = SQ > 1;
+  if (smem_split<KV, QUANT>(T, 1, S, MULTI) > MAX_SMEM_SPLIT) return (int)cudaErrorInvalidValue;
+  const bool pairs = sizeof(KV) == 1 && H % 2 == 0 &&
+                     smem_split<KV, QUANT>(T, 2, S, MULTI) <= MAX_SMEM_SPLIT;
+  if constexpr (MULTI) {
+    // int8 with scales on a grid that leaves SMs idle (a CTA each at most):
+    // a group of THREADS threads a query; else one group for the block.
+    const bool spread = QUANT && (long long)B * (H / (pairs ? 2 : 1)) * CLUSTER <= sm_count();
+#define OH_MULTI(G_, QG_) launch_multi<KV, QO, QUANT, G_, SQ, QG_>(q, k, v, ks, vs, lengths, \
+                              len_default, out, probs, B, S, H, T, sm_scale, st)
+    if constexpr (QUANT) {
+      if (pairs) return spread ? OH_MULTI(2, 1) : OH_MULTI(2, SQ);
+      return spread ? OH_MULTI(1, 1) : OH_MULTI(1, SQ);
+    } else if constexpr (sizeof(KV) > 1) {
+      return OH_MULTI(1, SQ);
+    } else {                        // int8 as plain numbers: one query a row only
+      return (int)cudaErrorInvalidValue;
+    }
+#undef OH_MULTI
+  } else {
     if constexpr (sizeof(KV) == 1)
-      if (H % 2 == 0 && smem_split<KV>(T, 2) <= MAX_SMEM_SPLIT)
+      if (pairs)
         return launch_split<KV, QO, QUANT, 2>(q, k, v, ks, vs, lengths, len_default, causal,
                                               out, probs, B, S, H, T, sm_scale, st);
     return launch_split<KV, QO, QUANT, 1>(q, k, v, ks, vs, lengths, len_default, causal, out,
                                           probs, B, S, H, T, sm_scale, st);
+  }
+}
+
+// MODE 0: K4 (the direct path); 1: K5, a cluster per query; 2: K5's
+// multi-query mode, a cluster per row for its S queries (no causal
+// offset), compiled for each block size SQ = min(S, S_MAX) so that no
+// query of a block is guarded (S = 1: the cluster per query).
+template <typename KV, typename QO, bool QUANT, int MODE>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* lengths, int len_default, int causal,
+           const void* rows, void* out, void* probs, int B, int S, int H, int T,
+           float sm_scale, cudaStream_t st) {
+  if (B <= 0 || S <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      (MODE == 1 ? (long long)S * B > 65535 : S > 65535))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (MODE > 0) {
+    if (rows || (MODE == 2 && causal)) return (int)cudaErrorInvalidValue;   // the beam mode is K4's
+#define OH_K5(SQ) launch_heads<KV, QO, QUANT, SQ>(q, k, v, ks, vs, lengths, len_default, causal, \
+                                                 out, probs, B, S, H, T, sm_scale, st)
+    if (MODE == 2) switch (S < S_MAX ? S : S_MAX) {
+        case 2: return OH_K5(2);
+        case 3: return OH_K5(3);
+        case 4: return OH_K5(4);
+        case 5: return OH_K5(5);
+        case S_MAX: return OH_K5(S_MAX);
+        default: break;             // S = 1
+      }
+    return OH_K5(1);
+#undef OH_K5
   } else {
     if (!rows)
       return launch_direct<KV, QO, QUANT, false>(q, k, v, ks, vs, lengths, len_default, causal,
@@ -1077,21 +1637,37 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   }
 }
 
-template <typename QO, bool SPLIT>
+template <typename QO, int MODE>
 int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
                 const void* ks, const void* vs, const void* lengths,
                 int len_default, int causal, const void* rows, void* out, void* probs,
                 int B, int S, int H, int T, float sm_scale, cudaStream_t st) {
   switch (kv_kind) {
-    case 0: return launch<int8_t, QO, true, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
+    case 0: return launch<int8_t, QO, true, MODE>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                  rows, out, probs, B, S, H, T, sm_scale, st);
+    case 1: return launch<int8_t, QO, false, MODE>(q, k, v, ks, vs, lengths, len_default, causal,
                                                    rows, out, probs, B, S, H, T, sm_scale, st);
-    case 1: return launch<int8_t, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
-                                                    rows, out, probs, B, S, H, T, sm_scale, st);
-    case 2: return launch<__nv_bfloat16, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default,
-                                                           causal, rows, out, probs, B, S, H, T,
-                                                           sm_scale, st);
-    case 3: return launch<float, QO, false, SPLIT>(q, k, v, ks, vs, lengths, len_default, causal,
-                                                   rows, out, probs, B, S, H, T, sm_scale, st);
+    case 2: return launch<__nv_bfloat16, QO, false, MODE>(q, k, v, ks, vs, lengths, len_default,
+                                                          causal, rows, out, probs, B, S, H, T,
+                                                          sm_scale, st);
+    case 3: return launch<float, QO, false, MODE>(q, k, v, ks, vs, lengths, len_default, causal,
+                                                  rows, out, probs, B, S, H, T, sm_scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename QO>
+int dispatch_mode(int mode, int kv_kind, const void* q, const void* k, const void* v,
+                  const void* ks, const void* vs, const void* lengths, int len_default,
+                  int causal, const void* rows, void* out, void* probs, int B, int S, int H,
+                  int T, float sm_scale, cudaStream_t st) {
+  switch (mode) {
+    case 0: return dispatch_kv<QO, 0>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
+                                      rows, out, probs, B, S, H, T, sm_scale, st);
+    case 1: return dispatch_kv<QO, 1>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
+                                      rows, out, probs, B, S, H, T, sm_scale, st);
+    case 2: return dispatch_kv<QO, 2>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
+                                      rows, out, probs, B, S, H, T, sm_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1110,7 +1686,10 @@ int dispatch_kv(int kv_kind, const void* q, const void* k, const void* v,
 // r*T + t), none where r = -1.
 // probs: null, or fp32 [B, S, H, T] that takes the probs of the value sum
 // (int8 levels in the int8 mode; 0 past each query's keys), for checks.
-// pipelined: 0 = direct loads (K4), 1 = the cluster split over T (K5).
+// pipelined: 0 = direct loads (K4); 1 = the cluster split over T (K5), a
+// cluster per query; 2 = K5's multi-query mode, a cluster per row for all
+// its S queries (causal must be 0, kv_kind 0, 2 or 3; the same bits, query
+// by query, as 1).
 extern "C" int oh_decode_attention(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* lengths, int len_default,
@@ -1119,16 +1698,11 @@ extern "C" int oh_decode_attention(const void* q, const void* k, const void* v,
                                    int qo_kind, int pipelined, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (qo_kind == 0)
-    return pipelined
-        ? dispatch_kv<float, true>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                   rows, out, probs, B, S, H, T, sm_scale, st)
-        : dispatch_kv<float, false>(kv_kind, q, k, v, ks, vs, lengths, len_default, causal,
-                                    rows, out, probs, B, S, H, T, sm_scale, st);
+    return dispatch_mode<float>(pipelined, kv_kind, q, k, v, ks, vs, lengths, len_default,
+                                causal, rows, out, probs, B, S, H, T, sm_scale, st);
   if (qo_kind == 1)
-    return pipelined
-        ? dispatch_kv<__nv_bfloat16, true>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                           causal, rows, out, probs, B, S, H, T, sm_scale, st)
-        : dispatch_kv<__nv_bfloat16, false>(kv_kind, q, k, v, ks, vs, lengths, len_default,
-                                            causal, rows, out, probs, B, S, H, T, sm_scale, st);
+    return dispatch_mode<__nv_bfloat16>(pipelined, kv_kind, q, k, v, ks, vs, lengths,
+                                        len_default, causal, rows, out, probs, B, S, H, T,
+                                        sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

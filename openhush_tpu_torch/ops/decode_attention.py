@@ -11,9 +11,16 @@ holding a slice of the keys, with the softmax combined across the
 cluster. The two are not equal bit for bit (K5 sums the softmax's
 denominator in another order, which can move an int8 prob level at an
 exact .5 tie), but each is within the plain version's tolerance, and K5
-gives the same bits on every launch. The decode step
-(models/whisper/model.py:_decode_flat_ro) runs the self-attention on K4
-and the cross-attention on K5. `attend_decode_beam` is K4's beam mode: the
+gives the same bits on every launch. With S > 1 queries a row and causal
+off, `attend_decode_pipelined` takes K5's multi-query mode,
+`attend_decode_multi`: one cluster per row (and pair of heads) for all S
+queries, reading the row's keys once (the JAX model's
+_attend_decode_flat_multi reads the cache once for its S queries), each
+query's output and probs the bits of a K5 launch of that query alone.
+The decode step (models/whisper/model.py:_decode_flat_ro) runs the
+self-attention on K4 and the cross-attention on K5; the grouped beam
+step's K beams and a verify block's S queries take the multi-query mode.
+`attend_decode_beam` is K4's beam mode: the
 grouped beam step's self-attention (model.py:decode_beam_step), where
 each of a group's K beams reads, at each position, the one cache row of
 the group that its ancestry selects there: a source-row table that
@@ -42,7 +49,9 @@ HEAD_DIM = 64            # the only head size the kernel takes (every Whisper)
 MAX_SMEM = 200 * 1024    # K4's dynamic shared memory, at most
 STAGES = 4               # K4's ring: at least one 2 KB pass per stage
 MAX_SMEM_SPLIT = 200 * 1024   # K5's, at most
-CLUSTER = 8              # K5's CTAs per query, each a slice of the keys
+CLUSTER = 8              # K5's CTAs per query (per row, multi), each a slice
+S_MAX = 6                # K5's multi-query mode: queries a block
+WARPS = 4                # K5's CTA: 128 threads
 TAB_MAX = 512            # K4's beam mode: positions of a table row, at most
 NEG = torch.finfo(torch.float32).min    # mask fill, as jnp.finfo(f32).min
 _QO = {torch.float32: 0, torch.bfloat16: 1}
@@ -213,14 +222,37 @@ def decode_cross_attend_plain(q: torch.Tensor, k: torch.Tensor,
         torch.bfloat16)
 
 
+def _split_smem(T: int, esize: int, G: int, S: int, multi: bool,
+                quant: bool) -> int:
+    """K5's dynamic shared memory (csrc/decode_attention.cu, SplitSmem) for
+    G heads a cluster and elements of esize bytes: a slice's rows (two
+    slices when the multi-query mode walks more than S_MAX queries), a
+    block's value sums by warp (the multi-query int8 mode: by quad of rows,
+    over slices padded to whole quads, with its levels packed as bytes)
+    and every rank's (two buffers when walking), its scores, and ks and
+    vs."""
+    per = -(-T // CLUSTER)
+    nq = min(S, S_MAX) if multi else 1
+    bufs = 2 if multi and S > S_MAX else 1
+    packed = multi and quant
+    rows = -(-per // 4) * 4 if packed else per
+    # A query's value sums: 4 a thread (packed), else a warp's a column.
+    sums = 4 * 32 * WARPS if packed else WARPS * G * HEAD_DIM
+    return (bufs * rows * HEAD_DIM * esize * G
+            + (sums + bufs * CLUSTER * G * HEAD_DIM) * nq * 4
+            + nq * per * G * 4 + 2 * per * G * 4
+            + (nq * G * rows if packed else 0))
+
+
 def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
-            pipelined: bool, name: str, return_probs: bool = False,
+            pipelined: int, name: str, return_probs: bool = False,
             rows=None):
     """Check the operands and launch the kernel; returns [B, S, H*D] in
-    q3's dtype (and the probs, as attend_decode_plain). `rows` (K4 only,
-    the beam mode): int8 [B, S, T], row b a group of S beams over k, v
-    [B, S*T, H*D] and `lengths` an int32 [B] tensor, as
-    attend_decode_beam_plain takes them."""
+    q3's dtype (and the probs, as attend_decode_plain). `pipelined`: 0 K4,
+    1 K5 (a cluster per query), 2 K5's multi-query mode (a cluster per
+    row; causal off). `rows` (K4 only, the beam mode): int8 [B, S, T], row
+    b a group of S beams over k, v [B, S*T, H*D] and `lengths` an int32
+    [B] tensor, as attend_decode_beam_plain takes them."""
     B, S, HD = q3.shape
     keys = k.shape[1]
     T = keys if rows is None else rows.shape[-1]
@@ -231,10 +263,12 @@ def _launch(q3, k, v, lengths, n_head, ks, vs, causal, sm_scale, kv_kind,
             or v.dtype != k.dtype:
         raise ValueError(f"{name}: q {q3.dtype} {tuple(q3.shape)}, k/v "
                          f"{k.dtype} {tuple(k.shape)}/{tuple(v.shape)}")
-    if pipelined:      # a slice's rows (K's, then V's), the value sums'
-        per = -(-T // CLUSTER)        # 3 KB, the scores, ks and vs
-        slice_rows = per * HEAD_DIM * k.element_size()
-        fits = slice_rows + 3 * 1024 + 12 * per <= MAX_SMEM_SPLIT
+    if pipelined == 2 and causal:
+        raise ValueError(f"{name}: K5's multi-query mode takes no causal "
+                         f"offset")
+    if pipelined:      # one head a cluster, the least
+        fits = _split_smem(T, k.element_size(), 1, S, pipelined == 2,
+                           kv_kind == 0) <= MAX_SMEM_SPLIT
     else:              # every key's score (and ks, vs; the table's row), one
         tail = T * 4 * (3 if kv_kind == 0 else 1)      # ring of passes
         if rows is not None:
@@ -301,7 +335,7 @@ def _no_gradient(name, *tensors):
                            f"torch.no_grad() (decoding needs no gradient)")
 
 
-def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined, name,
+def _attend(q3, k, v, lengths, n_head, ks, vs, causal, pipelined: int, name,
             return_probs, rows=None):
     if q3.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q3.device}")
@@ -327,7 +361,7 @@ def attend_decode(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q3.device.type == "cpu":
         return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,
                                    causal=causal, return_probs=return_probs)
-    out = _attend(q3, k, v, lengths, n_head, ks, vs, causal, False,
+    out = _attend(q3, k, v, lengths, n_head, ks, vs, causal, 0,
                   "attend_decode", return_probs)
     attend_decode.launches += 1
     return out
@@ -338,15 +372,44 @@ def attend_decode_pipelined(q3: torch.Tensor, k: torch.Tensor,
                             ks=None, vs=None, causal: bool = False,
                             return_probs: bool = False):
     """Same function as `attend_decode`, on K5: a cluster of 8 CTAs per
-    query, each loading a slice of the keys at once. Within the plain
-    version's tolerance, and the same bits on every launch."""
+    query, each loading a slice of the keys at once; with S > 1 queries a
+    row and causal off (a beam group's folded queries, a verify block, a
+    prefill's cross-attention), `attend_decode_multi`: a cluster per row
+    for all S, which reads the row's keys once. Within the plain version's
+    tolerance, and the same bits on every launch."""
     _no_gradient("attend_decode_pipelined", q3, k, v, ks, vs)
     if q3.device.type == "cpu":
         return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,
                                    causal=causal, return_probs=return_probs)
-    out = _attend(q3, k, v, lengths, n_head, ks, vs, causal, True,
-                  "attend_decode_pipelined", return_probs)
+    S, T = q3.shape[1], k.shape[1]
+    if S > 1 and not causal and _split_smem(
+            T, k.element_size(), 1, S, True,
+            k.dtype == torch.int8 and ks is not None) <= MAX_SMEM_SPLIT:
+        out = attend_decode_multi(q3, k, v, lengths, n_head, ks=ks, vs=vs,
+                                  return_probs=return_probs)
+    else:
+        out = _attend(q3, k, v, lengths, n_head, ks, vs, causal, 1,
+                      "attend_decode_pipelined", return_probs)
     attend_decode_pipelined.launches += 1
+    return out
+
+
+def attend_decode_multi(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths, n_head: int, *, ks=None, vs=None,
+                        return_probs: bool = False):
+    """K5's multi-query mode: the function of `attend_decode_plain` with
+    causal off (every query of a row sees the row's keys), on one cluster
+    of 8 CTAs per (pair of heads, row) that loads the row's keys once for
+    all its S queries (in blocks of S_MAX). Each query's output and probs
+    equal, bit for bit, those of a K5 launch of that query alone. CPU
+    tensors take the plain version."""
+    _no_gradient("attend_decode_multi", q3, k, v, ks, vs)
+    if q3.device.type == "cpu":
+        return attend_decode_plain(q3, k, v, lengths, n_head, ks=ks, vs=vs,
+                                   return_probs=return_probs)
+    out = _attend(q3, k, v, lengths, n_head, ks, vs, False, 2,
+                  "attend_decode_multi", return_probs)
+    attend_decode_multi.launches += 1
     return out
 
 
@@ -366,7 +429,7 @@ def attend_decode_beam(q3: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attend_decode_beam_plain(q3, k, v, rows, lengths, n_head,
                                         ks=ks, vs=vs,
                                         return_probs=return_probs)
-    out = _attend(q3, k, v, lengths, n_head, ks, vs, False, False,
+    out = _attend(q3, k, v, lengths, n_head, ks, vs, False, 0,
                   "attend_decode_beam", return_probs, rows=rows)
     attend_decode_beam.launches += 1
     return out
@@ -391,7 +454,7 @@ def decode_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T = k.shape[1]
     out = _launch(q.to(torch.bfloat16).reshape(B, 1, HD), k, v,
                   t_actual if t_actual is not None else T, n_heads, None,
-                  None, False, 1.0, kv_kind, pipelined,
+                  None, False, 1.0, kv_kind, int(pipelined),
                   "decode_cross_attend")
     decode_cross_attend.launches += 1
     return out.reshape(B, HD)
@@ -400,4 +463,5 @@ def decode_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attend_decode.launches = 0
 attend_decode_beam.launches = 0
 attend_decode_pipelined.launches = 0
+attend_decode_multi.launches = 0
 decode_cross_attend.launches = 0

@@ -18,6 +18,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,8 @@ from openhush_tpu_torch.ops import dsp
 from openhush_tpu_torch.runtime import daemon, engine
 from openhush_tpu_torch.runtime.ipc import IpcClient
 from openhush_tpu_torch.runtime.server import EngineServer
-from openhush_tpu_torch.runtime.tracker import ChunkResult
+from openhush_tpu_torch.runtime.tracker import (ChunkResult,
+                                                TranscriptionTracker)
 from openhush_tpu_torch.text.tokenizer import WhisperTokenizer
 from openhush_tpu_torch.utils import config
 from openhush_tpu_torch.utils import platform
@@ -475,6 +477,73 @@ def test_drain_holds_a_later_session_until_the_earlier_is_in(servers,
     d._drain_results()
     assert len(outputs) == 2 and d.tracker.pending_count == 0
     assert d._draining == [] and first not in server._results
+
+
+class _LaterChunkFirst:
+    """A stand-in server: it keeps a session's windows until `finish`, then
+    hands them to poll in the reverse of their submission order, all in one
+    drain (a continuous-batching server that finished a later chunk
+    first). Each window's text is `texts[chunk]`."""
+
+    def __init__(self, texts):
+        self.texts, self.sessions, self.finished = texts, {}, False
+
+    def open_session(self):
+        sid = len(self.sessions) + 1
+        self.sessions[sid] = []
+        return sid
+
+    def close_session(self, sid):
+        self.sessions.pop(sid, None)
+
+    def submit_window(self, sid, audio, window_id=0, **kw):
+        self.sessions[sid].append(window_id)
+
+    def finish(self):
+        self.finished = True
+
+    def poll(self, sid, timeout=None):
+        windows = self.sessions.get(sid)
+        if not self.finished or not windows:
+            return None
+        w = windows.pop()
+        return types.SimpleNamespace(window_id=w, tokens=[],
+                                     text=self.texts[(w & 0xFFFFFFFF) >> 1])
+
+
+def test_drain_outputs_chunks_in_order_not_poll_order(tmp_path):
+    """F5 (ROADMAP C): two windows of one sequence come back out of chunk
+    order within one drain. The daemon hands the tracker everything the
+    drain polled, then takes it sorted by (sequence, chunk) and
+    deduplicates in that order, as the JAX daemon does: chunk 0's text,
+    then chunk 1's without the words chunk 0 ended on. A replay that feeds
+    the tracker one window at a time in poll order gives other outputs."""
+    texts = ["alpha beta gamma delta epsilon", "epsilon zeta eta"]
+    got = {}
+    for side in SIDES:
+        server, outputs = _LaterChunkFirst(texts), []
+        d = _make(side, server, tmp_path, outputs)
+        d.ring.push(_audio(2.0))
+        assert d.start_recording()
+        d.ring.push(_audio(1.0, seed=1))
+        d._submit_chunk()                        # chunk 0
+        d.ring.push(_audio(0.7, seed=2))
+        assert d.stop_recording()               # chunk 1, final
+        server.finish()
+        d._drain_results()
+        assert d.tracker.is_empty()
+        got[side] = outputs
+    assert got["port"] == got["jax"] == ["alpha beta gamma delta epsilon",
+                                         "zeta eta"]
+    tracker = TranscriptionTracker(streaming=True)
+    per_window = []
+    for chunk in (1, 0):                         # poll order, one at a time
+        tracker.add_result(ChunkResult(text=texts[chunk], sequence_id=1,
+                                       chunk_id=chunk, is_final=chunk == 1,
+                                       duration_secs=0.0))
+        per_window += [r.text for r in tracker.take_ready() if r.text]
+    assert per_window == ["epsilon zeta eta", "alpha beta gamma delta epsilon"]
+    assert per_window != got["port"]
 
 
 def test_start_without_model_or_factory_fails_as_reference(tmp_path):
