@@ -587,10 +587,6 @@ def dsp_inputs(dsp, denoise, secs: float, seed: int):
     denoiser's log band energies [n_frames, 22] and its first floor."""
     dev = torch.device("cuda")
     x = 4.0 * torch.from_numpy(speechlike(secs, seed)).to(dev)
-    ceiling = dsp.fp32_scalar(10.0 ** (-1.0 / 20.0), x)
-    tg = torch.where(x.abs() > ceiling,
-                     ceiling / torch.clamp(x.abs(), min=1e-30),
-                     dsp.fp32_scalar(1.0, x))
     n_frames = x.numel() // denoise.HOP
     pad = denoise.N_FFT // 2
     padded = torch.nn.functional.pad(x[None, None], (pad, pad),
@@ -598,7 +594,70 @@ def dsp_inputs(dsp, denoise, secs: float, seed: int):
     re, im = denoise._stft(padded, n_frames)
     band = (re * re + im * im) @ denoise._bases(dev)["fb"]
     log_e = torch.log(band + 1e-10)
-    return x.abs(), tg, log_e, log_e[0].clone()
+    return x.abs(), target_gains(dsp, x), log_e, log_e[0].clone()
+
+
+def target_gains(dsp, x):
+    """limit()'s target gains at -1 dB."""
+    ceiling = dsp.fp32_scalar(10.0 ** (-1.0 / 20.0), x)
+    return torch.where(x.abs() > ceiling,
+                       ceiling / torch.clamp(x.abs(), min=1e-30),
+                       dsp.fp32_scalar(1.0, x))
+
+
+DSP_SEG = 512                                   # csrc/dsp.cu's SEG
+DSP_WARM = {"envelope": 16, "limiter_gain": 8}  # its WARM, in segments
+
+
+def dsp_hard_inputs(dsp, n: int, seed: int):
+    """Inputs that keep the segment kernels' shortcuts from applying, each
+    {kind: (target gains, magnitudes)} of n samples on the card: one peak
+    then quiet, no peak, peaks on a segment's first sample and on the last,
+    one peak every few segments, digital silence after speech, a constant,
+    gains just under 1.0 (which leave the limiter on another fixed point
+    below 1.0) with a few deep ones, +inf at a third and NaN at two thirds
+    of speech."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    quiet = (0.02 * rng.standard_normal(n)).astype(np.float32)
+    xs = {}
+    x = quiet.copy()
+    x[100] = 1.5
+    xs["peak-then-quiet"] = x
+    xs["no-peak"] = quiet
+    x = quiet.copy()
+    for i, v in ((0, 1.2), (DSP_SEG, 1.6), (17 * DSP_SEG, 1.3), (n - 1, 2.0)):
+        if i < n:
+            x[i] = v
+    xs["peak-at-edges"] = x
+    x = quiet.copy()
+    x[150::5 * DSP_SEG + 13] = 1.4
+    xs["sparse-peaks"] = x
+    x = 4.0 * speechlike((n + 0.5) / 16000, seed + 1)
+    x[n // 3:] = 0.0
+    xs["silence-after-speech"] = x
+    out = {}
+    for kind, x in xs.items():
+        t = torch.from_numpy(x).to(dev)
+        out[kind] = (target_gains(dsp, t), t.abs())
+    out["constant"] = (torch.full((n,), 0.7, device=dev),
+                       torch.full((n,), 0.3, device=dev))
+    tg = torch.ones(n, device=dev)
+    tg[7::97] = 1.0 - 3e-6
+    tg[500::733] = 0.6
+    out["tg-under-1"] = (tg, torch.from_numpy(
+        np.abs(speechlike((n + 0.5) / 16000, seed + 2))).to(dev))
+    x = 4.0 * torch.from_numpy(speechlike((n + 0.5) / 16000, seed + 3)).to(dev)
+    tg, a = target_gains(dsp, x), x.abs()
+    for v in (tg, a):
+        v[n // 3], v[2 * n // 3] = float("inf"), float("nan")
+    out["non-finite"] = (tg, a)
+    return out
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
 
 
 def phase_dsp_kernels(dsp, denoise):
@@ -607,23 +666,41 @@ def phase_dsp_kernels(dsp, denoise):
     window (480,000 samples) and on a 5 s daemon chunk, the noise floor on
     [3000, 22]. Each must give its plain version's bits (both round every
     product and sum on its own, in the reference's order) and its own bits
-    over two launches. Timed by CUDA events beside two bounds: the bytes
-    at 3.35 TB/s, and the dependent chain at 1.98 GHz."""
+    over two launches. The envelope and the limiter's gain (segment walks
+    with an exact carry) also on hard inputs (dsp_hard_inputs), bit for
+    bit: at 3 s (48,037 samples, ragged and unaligned rows; each alone and
+    all in one launch as signals of a batch) and at 300 samples against
+    the plain version, at 30 s against the serial walk (oh_*_serial, the
+    old design, fast enough to be the bit reference there). Timed by CUDA
+    events beside the serial walk and two bounds: the bytes at 3.35 TB/s,
+    and the walk the design cannot avoid ((WARM + 2) * SEG steps at the
+    serial walk's time a step in this run); the serial chain at 1.98 GHz
+    beside them."""
     att, rel = dsp.smoothing_coeff(5.0), dsp.smoothing_coeff(50.0)
     rc = dsp.smoothing_coeff(50.0)
     a30, tg30, le30, f30 = dsp_inputs(dsp, denoise, 30.0, SEED + 50)
     a5, tg5, le5, f5 = dsp_inputs(dsp, denoise, 5.0, SEED + 51)
     cases = {
         "envelope": (dsp.follow_envelope, dsp.follow_envelope_plain,
-                     lambda a: (a, att, rel), a30, a5,
+                     dsp.follow_envelope_serial, lambda a: (a, att, rel),
+                     1, a30, a5,
                      "openhush_tpu/ops/dsp.py:39 _follow_envelope (lax.scan)"),
         "limiter_gain": (dsp.limiter_gain, dsp.limiter_gain_plain,
-                         lambda t: (t, rc), tg30, tg5,
+                         dsp.limiter_gain_serial, lambda t: (t, rc), 0,
+                         tg30, tg5,
                          "openhush_tpu/ops/dsp.py:69 limit (its lax.scan "
                          "at :81)"),
     }
+    hard = {n: dsp_hard_inputs(dsp, n, SEED + 52 + i)
+            for i, n in enumerate((48037, 300, 480000))}
+
+    def walk_bound(name, n, serial_ms):
+        steps = min(n, (DSP_WARM[name] + 2) * DSP_SEG)
+        return bound_ms(8 * n, 5 * n, "fp32")[0] + steps * serial_ms / n
+
     rows = []
-    for name, (fn, plain, args, x30, x5, replaces) in cases.items():
+    for name, (fn, plain, serial, args, which, x30, x5,
+               replaces) in cases.items():
         row = dict(name=name, source="openhush_tpu_torch/csrc/dsp.cu",
                    replaces=replaces, counter=fn, library_ms=None)
         for label, x in (("", x30), ("chunk5s_", x5)):
@@ -631,21 +708,63 @@ def phase_dsp_kernels(dsp, denoise):
             again = fn(*args(x))
             ref, plain_ms = time_once_ms(lambda: plain(*args(x)))
             err = (ours - ref).abs().max().item()
-            same = bool(torch.equal(ours, again))
+            same = same_bits(ours, again)
             n = x.numel()
             b, by = bound_ms(8 * n, 5 * n, "fp32")
             chain = chain_ms(name, n)
             ms = time_ms(lambda: fn(*args(x)), iters=10, warmup=1)
+            serial_ms = time_ms(lambda: serial(*args(x)), iters=5, warmup=1)
+            walk = walk_bound(name, n, serial_ms)
+            as_serial = same_bits(ours, serial(*args(x)))
             log(f"{name} ({n} samples): max_abs_err vs plain {err:.3e} "
                 f"(tolerance 0: the same operations, each rounded), the same "
-                f"bits over two launches: {same}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.1f} ms; bounds: bytes {b * 1e3:.2f} us, the "
-                f"dependent chain {chain:.4f} ms (its bound)")
-            check(err == 0 and same and bool(torch.isfinite(ours).all()),
+                f"bits over two launches: {same}, the serial walk's bits: "
+                f"{as_serial}; kernel {ms:.4f} ms [serial walk "
+                f"{serial_ms:.4f}], plain {plain_ms:.1f} ms; bounds: bytes "
+                f"{b * 1e3:.2f} us, bytes and the walk {walk:.4f} ms; the "
+                f"serial chain {chain:.4f} ms")
+            check(err == 0 and same and as_serial
+                  and bool(torch.isfinite(ours).all()),
                   f"{name} kernel vs plain on {n} samples")
             row.update({label + "max_abs_err": err, label + "ms": ms,
                         label + "plain_ms": plain_ms, label + "bound_ms": b,
-                        label + "bound_by": by, label + "chain_bound_ms": chain})
+                        label + "bound_by": by, label + "chain_bound_ms": chain,
+                        label + "serial_ms": serial_ms,
+                        label + "walk_bound_ms": walk})
+
+        # The hard inputs: against the plain version at 48,037 and 300
+        # samples (each alone, and all as one batch), against the serial
+        # walk at 30 s.
+        hard_ms = {}
+        for n, inputs in hard.items():
+            stack = torch.stack([v[which] for v in inputs.values()])
+            against = plain if n < 480000 else serial
+            ref = against(*args(stack))
+            batch = fn(*args(stack))
+            check(same_bits(batch, ref), f"{name} on the {len(inputs)} hard "
+                  f"inputs of {n} samples as one batch")
+            for i, (kind, v) in enumerate(inputs.items()):
+                x = v[which]
+                ours = fn(*args(x))
+                again = fn(*args(x))
+                ok = same_bits(ours, ref[i]) and same_bits(ours, again)
+                err = (ours - ref[i]).abs().max().item()
+                line = (f"{name}, {kind} ({n} samples): vs "
+                        f"{'plain' if n < 480000 else 'the serial walk'} "
+                        f"max_abs_err {err:.3e}, the same bits: {ok}")
+                if n == 480000:
+                    ms = time_ms(lambda: fn(*args(x)), iters=5, warmup=1)
+                    serial_ms = time_ms(lambda: serial(*args(x)), iters=3,
+                                        warmup=1)
+                    hard_ms[kind] = [ms, serial_ms]
+                    line += (f"; kernel {ms:.4f} ms [serial walk "
+                             f"{serial_ms:.4f}]; bounds: bytes "
+                             f"{bound_ms(8 * n, 5 * n, 'fp32')[0] * 1e3:.2f} "
+                             f"us, bytes and the walk "
+                             f"{walk_bound(name, n, serial_ms):.4f} ms")
+                log(line)
+                check(ok, f"{name} on {kind}, {n} samples, bit for bit")
+        row["hard_inputs_ms"] = hard_ms
         rows.append(row)
 
     # The noise floor on a 30 s window's [3000, 22] log band energies.
@@ -2871,13 +2990,14 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
             dtype=torch.bfloat16, temperatures=(0.0,), preprocess=preprocess)
 
     dsp_fns = (dsp.follow_envelope, dsp.limiter_gain, denoise.noise_floor)
+    serial_fns = [dsp.follow_envelope_serial, dsp.limiter_gain_serial]
     capture = Capture()
     server_log = logging.getLogger(server_mod.__name__)
     server_log.addHandler(capture)
     try:
         srv = make(recorded)
         torch.cuda.synchronize()
-        for fn in counters + list(dsp_fns):
+        for fn in counters + list(dsp_fns) + serial_fns:
             fn.launches = 0
         t0 = time.monotonic()
         tokens = serve_windows(srv, requests)
@@ -2896,6 +3016,8 @@ def phase_audio_front(eng, longform, dsp, denoise, daemon, vad, silero,
     check(all(launches[fn.__name__] == n for fn in dsp_fns),
           "each DSP kernel ran once a window (denoise's floor, the "
           "compressor's envelope, the limiter's gain)")
+    check(all(fn.launches == 0 for fn in serial_fns),
+          "the path never took the serial walk (oh_*_serial)")
     check(not any("preprocess failed" in m for m in capture.messages),
           "no 'preprocess failed' warning: the server did not fall back to "
           "the raw audio")
@@ -6207,6 +6329,7 @@ def main() -> int:
                     "oneshot_launches", "int8_self_launches",
                     "verify_launches", "draft_launches", "server_launches",
                     "server_verify_launches", "chain_bound_ms",
+                    "serial_ms", "walk_bound_ms", "hard_inputs_ms",
                     "distill_launches", "daemon_launches",
                     "record_launches", "evaluate_launches",
                     "multichip_launches", "multichip_residual_launches", *(
@@ -6216,7 +6339,8 @@ def main() -> int:
                     *(
                         "chunk5s_" + name for name in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "chain_bound_ms")), *(
+                            "bound_by", "chain_bound_ms", "serial_ms",
+                            "walk_bound_ms")), *(
                         pre + name for pre in ("oneshot_", "int8_",
                                                "oneshot_int8_", "t512_",
                                                "draft_bf16_")

@@ -33,7 +33,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # extern "C" entry points and their argument types; each returns a
-# cudaError_t as int (0 = launched).
+# cudaError_t as int (0 = launched), except those in RESTYPES.
 SIGNATURES = {
     "oh_log_mel": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
     "oh_flash_attention": [_P] * 6 + [_I] * 4
@@ -47,10 +47,15 @@ SIGNATURES = {
     "oh_quantize_heads_kv": [_P] * 6 + [_LL, _I, _I, _P],
     "oh_decode_attention": [_P] * 6 + [_I, _I] + [_P] * 3 + [_I] * 4
                            + [_F, _I, _I, _I, _P],
-    "oh_envelope": [_P, _P, _LL, _I, _F, _F, _P],
-    "oh_limiter_gain": [_P, _P, _LL, _I, _F, _P],
+    "oh_envelope": [_P, _P, _LL, _I, _F, _F, _P, _P],
+    "oh_limiter_gain": [_P, _P, _LL, _I, _F, _P, _P],
+    "oh_envelope_serial": [_P, _P, _LL, _I, _F, _F, _P],
+    "oh_limiter_gain_serial": [_P, _P, _LL, _I, _F, _P],
+    "oh_dsp_scratch_floats": [_LL, _I],
     "oh_noise_floor": [_P, _P, _P, _I, _I, _I, _P],
 }
+
+RESTYPES = {"oh_dsp_scratch_floats": _LL}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -123,7 +128,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
     return _lib
 

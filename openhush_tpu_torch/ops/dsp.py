@@ -5,10 +5,13 @@ reference's AudioBuffer DSP methods, src/input/audio.rs:56-341). The two
 first-order recurrences, the compressor's envelope follower and the
 limiter's gain, run on hand-written CUDA kernels (csrc/dsp.cu) for CUDA
 tensors: in eager PyTorch a 30 s window would cost a few kernel launches
-for each of its 480,000 samples. Everything elementwise around them stays
-in PyTorch. Each recurrence has its plain version here, a loop over the
-samples in torch ops (the reference's lax.scan step), which CPU tensors
-take; the kernels give its bits.
+for each of its 480,000 samples. The kernels walk 512-sample segments in
+parallel and give each its exact start (the file's header says how); the
+one-thread serial walk stays callable (`*_serial`) as the card's bit
+reference. Everything elementwise around them stays in PyTorch. Each
+recurrence has its plain version here, a loop over the samples in torch
+ops (the reference's lax.scan step), which CPU tensors take; the kernels
+give its bits.
 
 Scalars follow the reference's rounding: the attack and release
 coefficients are exp of an fp32 value, computed once on the CPU; the
@@ -111,21 +114,37 @@ def _lanes(a: torch.Tensor) -> int:
     return n_sig
 
 
+def _launch(name: str, x: torch.Tensor, *coeffs: float,
+            serial: bool = False) -> torch.Tensor:
+    """Launch csrc/dsp.cu's `name` (or its serial walk) on CUDA fp32
+    [..., n] `x`; the segment kernels get their scratch here."""
+    check_cuda(name, x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _build.library()
+    n, n_sig = x.shape[-1], _lanes(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if serial:
+        err = getattr(lib, name + "_serial")(x.data_ptr(), out.data_ptr(), n,
+                                             n_sig, *coeffs, stream)
+    else:
+        scratch = torch.empty(lib.oh_dsp_scratch_floats(n, n_sig),
+                              dtype=torch.float32, device=x.device)
+        err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), n, n_sig,
+                                 *coeffs, scratch.data_ptr(), stream)
+    _build.check(err, name + ("_serial" if serial else ""))
+    return out
+
+
 def follow_envelope(a: torch.Tensor, attack: float,
                     release: float) -> torch.Tensor:
     """The envelope follower of [..., n] fp32 magnitudes. CPU tensors take
     the plain version; CUDA tensors launch csrc/dsp.cu:oh_envelope."""
     if a.device.type == "cpu":
         return follow_envelope_plain(a, attack, release)
-    check_cuda("follow_envelope", a)
-    a = a.contiguous()
-    out = torch.empty_like(a)
-    if a.numel() == 0:
-        return out
-    err = _build.library().oh_envelope(
-        a.data_ptr(), out.data_ptr(), a.shape[-1], _lanes(a), attack, release,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "oh_envelope")
+    out = _launch("oh_envelope", a, attack, release)
     follow_envelope.launches += 1
     return out
 
@@ -138,20 +157,40 @@ def limiter_gain(tg: torch.Tensor, rc: float) -> torch.Tensor:
     the plain version; CUDA tensors launch csrc/dsp.cu:oh_limiter_gain."""
     if tg.device.type == "cpu":
         return limiter_gain_plain(tg, rc)
-    check_cuda("limiter_gain", tg)
-    tg = tg.contiguous()
-    out = torch.empty_like(tg)
-    if tg.numel() == 0:
-        return out
-    err = _build.library().oh_limiter_gain(
-        tg.data_ptr(), out.data_ptr(), tg.shape[-1], _lanes(tg), rc,
-        torch.cuda.current_stream(tg.device).cuda_stream)
-    _build.check(err, "oh_limiter_gain")
+    out = _launch("oh_limiter_gain", tg, rc)
     limiter_gain.launches += 1
     return out
 
 
 limiter_gain.launches = 0
+
+
+def follow_envelope_serial(a: torch.Tensor, attack: float,
+                           release: float) -> torch.Tensor:
+    """follow_envelope by csrc/dsp.cu's serial walk (one thread a signal):
+    a reference on the card, never on the path. CPU tensors take the
+    plain version."""
+    if a.device.type == "cpu":
+        return follow_envelope_plain(a, attack, release)
+    out = _launch("oh_envelope", a, attack, release, serial=True)
+    follow_envelope_serial.launches += 1
+    return out
+
+
+follow_envelope_serial.launches = 0
+
+
+def limiter_gain_serial(tg: torch.Tensor, rc: float) -> torch.Tensor:
+    """limiter_gain by csrc/dsp.cu's serial walk: a reference on the card,
+    never on the path. CPU tensors take the plain version."""
+    if tg.device.type == "cpu":
+        return limiter_gain_plain(tg, rc)
+    out = _launch("oh_limiter_gain", tg, rc, serial=True)
+    limiter_gain_serial.launches += 1
+    return out
+
+
+limiter_gain_serial.launches = 0
 
 
 # ---------------------------------------------------------------------------

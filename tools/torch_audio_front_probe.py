@@ -5,8 +5,10 @@
 Builds the port's kernels, then runs chip_smoke.py's two audio-front
 phases alone: the three DSP recurrences of csrc/dsp.cu against their plain
 versions (the envelope and the limiter's gain on a 30 s window and a 5 s
-chunk, the noise floor on [3000, 22]: bits, two launches, times, bounds),
-and, unless --dsp-only, the daemon's audio front on large-v3 bf16 random
+chunk, the noise floor on [3000, 22]: bits, two launches, times, bounds;
+the envelope and the limiter's gain also on the hard inputs, against the
+plain version at 48,037 and 300 samples and against the serial walk at
+30 s, each time beside the serial walk's), and, unless --dsp-only, the daemon's audio front on large-v3 bf16 random
 weights (build_preprocess card against CPU, a server with the preprocess,
 the VAD engines, Silero and the wake-word detector card against CPU, host
 wall and device time per chunk and window). About 80 s of command with
