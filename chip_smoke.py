@@ -56,7 +56,15 @@ Phases, each printing its own lines and its seconds:
      version's bits and its own over two launches, timed beside two bounds
      (bytes at 3.35 TB/s; its dependent chain at 1.98 GHz); K1, K2 (bf16),
      K4 and K5 at the daemon's shapes (audio_ctx 256 and 512: 2T mel
-     frames, T keys, 8 slots), timed beside their bounds and SDPA;
+     frames, T keys, 8 slots), timed beside their bounds and SDPA; the int8
+     decoder weights' product (csrc/w8a16.cu, W8A16) at 1, 5, 8, 20, 32,
+     448, 1500 and 12000 rows on large-v3's [1280, 1280], [1280, 5120] and
+     [5120, 1280] and a tensor-parallel rank's [1280, 640] in bf16 (the q
+     projection's bias folded on [1280, 1280]), at 1 and 8 rows in fp32:
+     the kernel and the plain version within the tolerance helper's bound
+     of the fp32 product, the kernel's bits the same over two launches,
+     timed cold beside the plain version, the cast-plus-mm pair, the
+     bound and, where the card's torch has it, _weight_int8pack_mm;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -93,7 +101,10 @@ Phases, each printing its own lines and its seconds:
      CPU; host wall and device time per VAD chunk, wake-word chunk, 30 s
      preprocess and rnn_gains on 500 frames;
   4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
-     quantize_encoder) through phase 4's 20 s request and 4b's trace, the
+     quantize_encoder) through phase 4's 20 s request (the W8A16 kernel
+     counted: 8 launches a decoder layer a flat call or long prefill, 2 a
+     layer a cross-KV) and 4b's trace (a decoder call's device and host
+     time and the request's x-realtime beside phase 4's bf16 ones), the
      encoder's device time W8A8 against bf16 at B=1 and B=8 (and
      torch._int_mm on column- and row-major levels), then phase 4c's run
      on a server with an int8 self-cache (K3 counted once per layer and
@@ -217,7 +228,9 @@ from the fine-tune for K6 and K7, from 4d's int8-self-cache server for K4's
 int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row and K5's multi-query row (with 4e's one-shot and int8 and
 4f's verify launches of the mode beside), from 4f's one-shot speculative engine for the two verify
-rows, from 4c-audio's preprocess server for the three DSP rows; K1-K5 also
+rows, from 4c-audio's preprocess server for the three DSP rows, from 4d's
+one-shot int8 engine for the W8A16 row (its server's beside, every shape
+of phase 2 under "shapes"); K1-K5 also
 carry phase 4g's launches as distill_launches, phase 11's as
 record_launches and phase 12's as evaluate_launches, K1-K5 and the limiter
 phase 10's as daemon_launches, K1-K7 phase 13's per rank as
@@ -1542,6 +1555,153 @@ def phase_multi_attention(da, quantize):
     return row
 
 
+# The W8A16 phase: rows of x (one-shot 1, one-shot beam 5, serving 8, a
+# 4-group beam server 20, the spec server's verify 32, a 448-token block,
+# one window's cross-KV 1500 and eight windows' 12000), at large-v3's
+# decoder widths and a tensor-parallel rank's [1280, 640]; fp32 x (the tiny
+# model's path) at 1 and 8 rows.
+W8A16_MS = (1, 5, 8, 20, 32, 448, 1500, 12000)
+W8A16_FP32_MS = (1, 8)
+W8A16_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280), (1280, 640))
+
+
+def phase_w8a16(w8a16, whisper):
+    """The int8 decoder weights' product (csrc/w8a16.cu) at every W8A16_MS
+    row count on each of W8A16_SHAPES in bf16, and at W8A16_FP32_MS in fp32,
+    on levels and scales from the port's own recipe (model._quantize_weight
+    of random weights), with the q projection's bias folded on [1280, 1280]:
+    the kernel and the plain version each within the tolerance helper's
+    bound of the fp32 reference (w8a16.within_tolerance), the kernel's
+    outputs the same bits over two launches; timed over enough per-layer
+    copies of the levels to exceed the 50 MB L2 (a decoder call reads each
+    once), beside the plain version, the library pair (the levels cast to
+    x's dtype and torch.mm with fp32 output, as the port ran it before this
+    kernel) and, where the card's torch has one, torch._weight_int8pack_mm
+    on a transposed copy at the decode shapes, M <= 32 (its bf16 scales
+    round otherwise: timed, not checked; a yardstick the card's torch may
+    lack, so a refusal only drops its column). Returns the `{"kernels"}`
+    row (the one-shot's M=1 on [1280, 1280] in its main keys, every shape
+    under "shapes")."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 120)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pack = getattr(torch, "_weight_int8pack_mm", None)
+    row = dict(name="w8a16", source="openhush_tpu_torch/csrc/w8a16.cu",
+               replaces="openhush_tpu/models/whisper/model.py:274 _mm",
+               counter=w8a16.mm_w8a16, shapes=[])
+    for I, O in W8A16_SHAPES:
+        ws = [whisper._quantize_weight(0.05 * torch.randn(
+            I, O, generator=g, device=dev))
+            for _ in range(max(2, math.ceil(64e6 / (I * O))))]
+        bias = 0.5 * torch.randn(O, generator=g, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            for M in (W8A16_MS if dtype == torch.bfloat16 else W8A16_FP32_MS):
+                x = torch.randn(M, I, generator=g, device=dev).to(dtype)
+                b = bias.to(dtype) if (I, O) == (1280, 1280) else None
+                w = ws[0]
+                y = w8a16.mm_w8a16(x, w, b)
+                again = w8a16.mm_w8a16(x, w, b)
+                plain = w8a16.mm_w8a16_plain(x, w, b)
+                torch.cuda.synchronize()
+                ok, ratio = w8a16.within_tolerance(y, x, w, b)
+                ok_p, ratio_p = w8a16.within_tolerance(plain, x, w, b)
+                err = (y.float() - plain.float()).abs().max().item()
+                differ = (y != plain).float().mean().item()
+                what = (f"W8A16 [{M}, {I}] x [{I}, {O}] "
+                        f"{str(dtype)[6:]}" + (" + bias" if b is not None
+                                               else ""))
+                log(f"  {what}: vs the fp32 reference at most {ratio:.3f} "
+                    f"of the tolerance (the plain version {ratio_p:.3f}); "
+                    f"vs plain max_abs_err {err:.3e}, {differ:.2%} of "
+                    f"outputs differ; two launches "
+                    f"{'the same bits' if torch.equal(y, again) else 'DIFFER'}")
+                check(ok and ok_p and torch.equal(y, again)
+                      and bool(torch.isfinite(y).all()), what)
+                calls = lambda fn: rotate([functools.partial(fn, x, wi, b)
+                                           for wi in ws])
+                # Fewer timed launches where one takes tens of us or more.
+                timed = functools.partial(time_ms, iters=20 if M <= 32 else 6,
+                                          warmup=3 if M <= 32 else 1)
+                ms = timed(calls(w8a16.mm_w8a16))
+                plain_ms = timed(calls(w8a16.mm_w8a16_plain))
+                if dtype == torch.bfloat16:
+                    lib = lambda x, wi, b: torch.mm(
+                        x, wi["q"].to(dtype), out_dtype=torch.float32)
+                else:
+                    lib = lambda x, wi, b: x @ wi["q"].to(dtype)
+                library_ms = timed(calls(lib))
+                pack_ms = None
+                if pack is not None and dtype == torch.bfloat16 and M <= 32:
+                    wt = w["q"].t().contiguous()
+                    sb = w["s"].to(dtype)
+                    try:
+                        pack(x, wt, sb)
+                        torch.cuda.synchronize()
+                        pack_ms = time_ms(lambda: pack(x, wt, sb))
+                    except (RuntimeError, NotImplementedError) as exc:
+                        log(f"    torch._weight_int8pack_mm: "
+                            f"{str(exc).splitlines()[0][:100]}")
+                        pack = None
+                e = x.element_size()
+                bound, by = bound_ms(
+                    I * O + e * M * I + e * M * O + 4 * O
+                    + (0 if b is None else e * O), 2 * M * I * O,
+                    "bf16" if dtype == torch.bfloat16 else "fp32")
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cast "
+                    f"+ mm {library_ms:.4f} ms"
+                    + (f", _weight_int8pack_mm {pack_ms:.4f} ms"
+                       if pack_ms is not None else "")
+                    + f"; bound {bound * 1e3:.3f} us ({by})")
+                row["shapes"].append(dict(
+                    M=M, I=I, O=O, dtype=str(dtype)[6:], bias=b is not None,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, int8pack_ms=pack_ms,
+                    bound_ms=bound, bound_by=by))
+                if (M, I, O, dtype) == (1, 1280, 1280, torch.bfloat16):
+                    row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=by,
+                               library_ms=library_ms)
+        del ws
+    return row
+
+
+def check_w8a16_launches(launches, params, n_layer, flat_calls, prefills,
+                         cross_kvs):
+    """Every product with an int8 decoder weight launched the W8A16 kernel
+    once, and a dense stack launched none: 8 a decoder layer (q, k, v, o,
+    xq, xo, fc1, fc2) for each flat decoder call and each long prefill, 2
+    a layer (xk, xv) for each cross-KV computation."""
+    got = launches["mm_w8a16"]
+    int8 = isinstance(params["decoder"]["layers"]["q_w"], dict)
+    want = (n_layer * (8 * (flat_calls + prefills) + 2 * cross_kvs)
+            if int8 else 0)
+    log(f"  W8A16 launches {got} (expected "
+        + (f"{n_layer} x (8 x ({flat_calls} flat decoder calls + "
+           f"{prefills} long prefills) + 2 x {cross_kvs} cross-KV "
+           f"computations) = {want})" if int8 else "0: dense weights)"))
+    check(got == want, "the W8A16 kernel ran once for every int8-weight "
+          "product")
+
+
+@contextlib.contextmanager
+def counting_prefills(whisper, cfg):
+    """Counts model.decode's long prefills (S * heads > 128: the path that
+    writes the block and attends in plain PyTorch) while it is open."""
+    count = {"long": 0}
+    decode = whisper.decode
+
+    def counted(c, params, tokens, *args, **kw):
+        if c == cfg and tokens.shape[1] * c.n_text_head > 128:
+            count["long"] += 1
+        return decode(c, params, tokens, *args, **kw)
+
+    whisper.decode = counted
+    try:
+        yield count
+    finally:
+        whisper.decode = decode
+
+
 BEAM = 5                     # the beam width of the beam phases (K)
 BEAM_GROUPS = 4              # phase 4e's beam server: groups, and requests
 BEAM_SECS = (5.0, 15.0, 30.0, 45.0)
@@ -2656,17 +2816,19 @@ def check_decode_launches(launches, flat_calls, n_layer, int8_self=None,
 
 def phase_main_path(eng, whisper, counters, n_layer, secs=(20.0, 45.0)):
     """The one-shot path: `eng` transcribes requests of `secs` (20 s and
-    45 s), with every kernel's launch count read over exactly that run."""
+    45 s), with every kernel's launch count read over exactly that run.
+    Returns (the launches, x-realtime)."""
     requests = [speechlike(x, SEED + 2 + i) for i, x in enumerate(secs)]
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
     whisper._decode_flat_ro.calls = whisper._decode_flat_ro.layers = 0
-    t0 = time.monotonic()
-    results = [eng.transcribe(a, max_new_tokens=MAX_NEW_TOKENS)
-               for a in requests]
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    with counting_prefills(whisper, eng.cfg) as prefills:
+        t0 = time.monotonic()
+        results = [eng.transcribe(a, max_new_tokens=MAX_NEW_TOKENS)
+                   for a in requests]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     windows = sum(r.windows for r in results)
     audio_s = sum(len(a) for a in requests) / 16000
@@ -2691,7 +2853,11 @@ def phase_main_path(eng, whisper, counters, n_layer, secs=(20.0, 45.0)):
           "K3 ran once (K and V) for every decoder layer and window")
     check_decode_launches(launches, whisper._decode_flat_ro.calls, n_layer,
                           flat_layers=whisper._decode_flat_ro.layers)
-    return launches
+    if "mm_w8a16" in launches:
+        check_w8a16_launches(launches, eng.params, n_layer,
+                             whisper._decode_flat_ro.calls, prefills["long"],
+                             windows)
+    return launches, audio_s / wall
 
 
 def busy_steps(srv, n_busy: int, seed: int, unit: str) -> None:
@@ -2813,10 +2979,12 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     whisper.compute_cross_kv_quant = counted("xkv", xkv_fn)
     decoding.detect_language_logits = counted("detect", detect_fn)
     try:
-        t0 = time.monotonic()
-        results = longform.transcribe_files(srv, requests, language="auto")
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+        with counting_prefills(whisper, cfg) as prefills:
+            t0 = time.monotonic()
+            results = longform.transcribe_files(srv, requests,
+                                                language="auto")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
     finally:
         whisper.compute_cross_kv_quant = xkv_fn
         decoding.detect_language_logits = detect_fn
@@ -2850,6 +3018,10 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     else:
         check_decode_launches(launches, flat_calls, n_layer, k3,
                               flat_layers=whisper._decode_flat_ro.layers)
+    if "mm_w8a16" in launches:
+        check_w8a16_launches(launches, params, n_layer,
+                             flat_calls + beam_calls, prefills["long"],
+                             calls["xkv"])
 
     busy_steps(srv, n_slots, SEED + 40, unit)
     return launches, writes
@@ -4226,7 +4398,9 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
     timed on the host clock, then again under torch.profiler tracing only
     the device (CUDA kernels and copies), so that the trace adds little
     host time. Prints host wall per decoder call (grouped beam step),
-    device busy time, idle share and the top kernels."""
+    device busy time, idle share and the top kernels. Returns {"host_ms",
+    "device_ms"} a call (device_ms None where the trace saw no device
+    events)."""
     from torch.profiler import ProfilerActivity, profile
     cfg = eng.cfg
     with torch.inference_mode():
@@ -4262,10 +4436,11 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
     busy, by_name = device_time(prof)
     log(f"  window front (log-mel + encoder + int8 cross-KV): "
         f"{front_s * 1e3:.1f} ms host wall")
+    out = {"host_ms": untraced * 1e3 / n, "device_ms": None}
     if busy == 0:
         log("  decode trace: the profiler saw no device events; device "
             "time not measured")
-        return
+        return out
     log(f"  {'beam decode' if beam else 'decode'}: {n} "
         f"{'grouped beam steps' if beam else 'decoder calls'} in "
         f"{untraced * 1e3:.1f} ms host wall "
@@ -4276,6 +4451,8 @@ def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8 if beam else 6]
     for name, us in top:
         log(f"    {us / busy:6.1%}  {us / 1e3:8.2f} ms  {name[:90]}")
+    out["device_ms"] = busy / 1e3 / n
+    return out
 
 
 # Phase 10, the daemon: push-to-talk cycles over IPC (seconds of speech
@@ -6091,7 +6268,7 @@ def main() -> int:
                                            wakeword)
     from openhush_tpu_torch.ops import (_build, decode_attention, denoise,
                                         dsp, flash_attention, frontend, mel,
-                                        quantize)
+                                        quantize, w8a16)
     from openhush_tpu_torch import cli
     from openhush_tpu_torch.audio import capture
     from openhush_tpu_torch.runtime import (batcher, daemon, ipc, longform,
@@ -6129,6 +6306,7 @@ def main() -> int:
     beam_rows = phase_beam_attention(decode_attention, quantize)
     spec_rows = phase_spec_attention(decode_attention, quantize)
     multi_row = phase_multi_attention(decode_attention, quantize)
+    w8_row = phase_w8a16(w8a16, whisper)
     dsp_rows = phase_dsp_kernels(dsp, denoise)
     daemon_shapes = phase_daemon_shapes(frontend, flash_attention,
                                         decode_attention, quantize, mel)
@@ -6162,14 +6340,14 @@ def main() -> int:
         f"rungs, beam, speculative: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
-    counters = [r["counter"] for r in rows]
+    counters = [r["counter"] for r in rows] + [w8a16.mm_w8a16]
     n_layer = get_config("large-v3").n_text_layer
     eng = WhisperEngine("large-v3", dtype="bfloat16", allow_random_init=True)
-    phase_main_path(eng, whisper, counters, n_layer)
+    _, xrt_bf16 = phase_main_path(eng, whisper, counters, n_layer)
     log(f"phase 4 one-shot path: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
-    phase_trace(eng, decoding, whisper, frontend)
+    call_bf16 = phase_trace(eng, decoding, whisper, frontend)
     log(f"phase 4b decode trace: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
@@ -6195,10 +6373,25 @@ def main() -> int:
           "the int8 rungs quantized the decoder and encoder weights")
     log("  int8 rungs: one-shot engine (int8 decoder weights, W8A8 encoder)")
     # The 20 s request alone (a depth cut that keeps the script inside its
-    # time limit: the int8 one-shot engine runs below realtime, and its
-    # 45 s request took ~65 s).
-    phase_main_path(eng8, whisper, counters, n_layer, secs=(20.0,))
-    phase_trace(eng8, decoding, whisper, frontend)
+    # time limit).
+    launches1, xrt8 = phase_main_path(eng8, whisper, counters, n_layer,
+                                      secs=(20.0,))
+    call8 = phase_trace(eng8, decoding, whisper, frontend)
+    dev_ms = lambda c: ("not measured" if c["device_ms"] is None
+                        else f"{c['device_ms']:.3f} ms")
+    log(f"  int8 decoder weights (W8A16) against bf16 (phase 4): a decoder "
+        f"call {dev_ms(call8)} of device time against {dev_ms(call_bf16)}, "
+        f"{call8['host_ms']:.2f} ms of host wall against "
+        f"{call_bf16['host_ms']:.2f} "
+        f"({call8['host_ms'] / call_bf16['host_ms']:.2f}x); the one-shot "
+        f"20 s request {xrt8:.2f}x realtime against phase 4's "
+        f"{xrt_bf16:.2f}x ({xrt8 / xrt_bf16:.2f} of it)")
+    w8_row.update(launches=launches1["mm_w8a16"],
+                  int8_call_device_ms=call8["device_ms"],
+                  bf16_call_device_ms=call_bf16["device_ms"],
+                  int8_call_host_ms=call8["host_ms"],
+                  bf16_call_host_ms=call_bf16["host_ms"],
+                  int8_xrt=xrt8, bf16_xrt=xrt_bf16)
     phase_int8_encoder(eng, eng8, whisper, frontend)
     log("  int8 rungs: server with an int8 self-cache on those weights")
     launches8, flat8 = phase_serving(eng8, longform, whisper, counters,
@@ -6206,6 +6399,7 @@ def main() -> int:
     for r in int8_rows:
         r["launches"] = launches8[r["counter"].__name__]
     int8_rows[1]["self_write_launches"] = n_layer * flat8
+    w8_row["server_launches"] = launches8["mm_w8a16"]
     del eng8
     log(f"phase 4d int8 rungs: {time.monotonic() - t:.1f} s")
 
@@ -6309,7 +6503,8 @@ def main() -> int:
     log(f"phase 13 multichip: {time.monotonic() - t:.1f} s")
 
     kernels = []
-    for r in rows + int8_rows + beam_rows + spec_rows + [multi_row] + dsp_rows:
+    for r in (rows + int8_rows + beam_rows + spec_rows + [multi_row]
+              + dsp_rows + [w8_row]):
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
@@ -6332,7 +6527,10 @@ def main() -> int:
                     "serial_ms", "walk_bound_ms", "hard_inputs_ms",
                     "distill_launches", "daemon_launches",
                     "record_launches", "evaluate_launches",
-                    "multichip_launches", "multichip_residual_launches", *(
+                    "multichip_launches", "multichip_residual_launches",
+                    "shapes", "int8_call_device_ms", "bf16_call_device_ms",
+                    "int8_call_host_ms", "bf16_call_host_ms", "int8_xrt",
+                    "bf16_xrt", *(
                         f"ctx{T}_{name}" for T in DAEMON_CTXS
                         for name in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")),

@@ -18,6 +18,11 @@ Differences from the reference, each with its reason:
   hand-written decode-attention kernel, ops/decode_attention.py; an int8
   self-cache takes its new keys from the per-head quantize kernel
   (ops/quantize.py, K and V in one launch) before it is written.
+- An int8 decoder weight's product (`_mm`) runs on the W8A16 kernel
+  (ops/w8a16.py), which reads the levels once as int8 where XLA fuses
+  their convert into the dot; where the reference adds a bias right after
+  the product (`_mm(x, w) + b`) the kernel's epilogue adds it, rounding
+  as the separate add does.
 - The W8A8 encoder's int8 weights are stored column-major in each layer
   (the same [in, out] values): `torch._int_mm` (cuBLASLt's int8 GEMM)
   runs several times faster on a column-major second operand on the H100
@@ -58,6 +63,7 @@ from openhush_tpu_torch.ops.decode_attention import (ancestry_rows,
                                                      div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads_kv
+from openhush_tpu_torch.ops.w8a16 import mm_w8a16
 from openhush_tpu_torch.parallel.sharding import (copy_to_model,
                                                   reduce_from_model)
 
@@ -121,7 +127,7 @@ def _gelu_mode() -> str:
 
 
 def _mlp(x, lp, tp=None):
-    h = _gelu(_mm(copy_to_model(x, tp), lp["fc1_w"]) + lp["fc1_b"])
+    h = _gelu(_mm(copy_to_model(x, tp), lp["fc1_w"], lp["fc1_b"]))
     return _row(h, lp["fc2_w"], tp) + lp["fc2_b"]
 
 
@@ -188,24 +194,17 @@ def _layers(stacked: dict) -> list[dict]:
 # int8 weights (the reference's int8 rungs)
 # ---------------------------------------------------------------------------
 
-def _mm(x, w):
-    """x @ w for a plain weight, or for an int8 weight {"q": int8 [in, out],
-    "s": fp32 [out]} per output channel: the product of x and the levels
-    with fp32 sums, times the scales in fp32, then cast to x's dtype (the
-    reference's dot with preferred_element_type=f32). On the card a bf16 x
-    takes torch.mm's fp32 output, so nothing rounds to bf16 before the
-    scale; on the CPU the product runs in fp32."""
-    if not isinstance(w, dict):
-        return x @ w
-    q = w["q"].to(x.dtype)
-    if x.dtype == torch.float32:
-        y = x @ q
-    elif x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), q, out_dtype=torch.float32
-                     ).view(*x.shape[:-1], q.shape[-1])
-    else:
-        y = x.float() @ q.float()
-    return (y * w["s"].float()).to(x.dtype)
+def _mm(x, w, b=None):
+    """x @ w (+ b) for a plain weight, or for an int8 weight {"q": int8
+    [in, out], "s": fp32 [out]} per output channel: the product of x and the
+    levels with fp32 sums, times the scales in fp32, then cast to x's dtype
+    (the reference's dot with preferred_element_type=f32), then + b in x's
+    dtype, as the reference's `_mm(x, w) + b`. An int8 weight takes the
+    W8A16 kernel (ops/w8a16.py: the levels read once as int8, the bias in
+    its epilogue) on a CUDA tensor, its plain version on a CPU one."""
+    if isinstance(w, dict):
+        return mm_w8a16(x, w, b)
+    return x @ w if b is None else x @ w + b
 
 
 def _quantize_weight(w: torch.Tensor) -> dict:
@@ -237,7 +236,7 @@ def quantize_decoder_weights(params: Params) -> Params:
     """Every decoder layer matrix (self, cross and MLP projections, xk_w and
     xv_w included) int8 with per-output-channel scales; the token and
     position tables and the layer norms stay dense. The decoder's `_mm`
-    casts the levels to the activation dtype on every call."""
+    runs them on the W8A16 kernel."""
     return _quantize_layers(params, "decoder", column_major=False)
 
 
@@ -383,7 +382,7 @@ def _cross_kv_layers(params: Params, audio_features: torch.Tensor, tp):
     audio_features = copy_to_model(audio_features, tp)
     for lp in _layers(params["decoder"]["layers"]):
         yield (_mm(audio_features, lp["xk_w"]),
-               _mm(audio_features, lp["xv_w"]) + lp["xv_b"])
+               _mm(audio_features, lp["xv_w"], lp["xv_b"]))
 
 
 def _decoder_tp(cfg: WhisperConfig, params: Params):
@@ -453,7 +452,9 @@ def _attend_views(q4, k4, v4, mask, *, ks=None, vs=None):
         probs = probs * vs.transpose(1, 2)[:, :, None, :]
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(compute), v4.to(compute))
     B, S = q4.shape[:2]
-    return out.reshape(B, S, -1).to(q4.dtype)
+    # Contiguous for the products after it (the W8A16 kernel takes no
+    # strided x).
+    return out.reshape(B, S, -1).to(q4.dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +491,7 @@ def _write_self_kv(cache, l, h, lp, n_head: int, write):
     self-cache with write(buf, new) (with their scales in an int8 cache)
     and return the layer's (k, v, k_scale, v_scale)."""
     bufs = _kv_at(cache, l)
-    new = _new_kv(cache, _mm(h, lp["k_w"]), _mm(h, lp["v_w"]) + lp["v_b"],
+    new = _new_kv(cache, _mm(h, lp["k_w"]), _mm(h, lp["v_w"], lp["v_b"]),
                   n_head)
     for buf, t in zip(bufs, new):
         if t is not None:
@@ -578,7 +579,7 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
                                                     t.shape[-1])
     for l, lp in enumerate(_layers(dec["layers"])):
         h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
-        q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
+        q = _mm(h, lp["q_w"], lp["q_b"])                 # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
         if beam is None:
             attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
@@ -589,7 +590,7 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
                                       vs=group(vs)).view(B, S, -1)
         x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
         h = copy_to_model(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]), tp)
-        xq = _mm(h, lp["xq_w"]) + lp["xq_b"]
+        xq = _mm(h, lp["xq_w"], lp["xq_b"])
         xk, xv, xks, xvs = _kv_at(cross_kv, l)
         attn = attend_decode_pipelined(group(xq), xk, xv, None, n_head,
                                        ks=xks, vs=xvs).view(B, S, -1)
@@ -760,14 +761,14 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
 
     for l, lp in enumerate(_layers(dec["layers"])):
         h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
-        q = _mm(h, lp["q_w"]) + lp["q_b"]                # [B, S, HD]
+        q = _mm(h, lp["q_w"], lp["q_b"])                 # [B, S, HD]
         k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
         attn = _attend_views(
             q.view(B, S, n_head, dh), k.view(B, max_len, n_head, dh),
             v.view(B, max_len, n_head, dh), self_mask, ks=ks, vs=vs)
         x = x + _row(attn, lp["o_w"], tp) + lp["o_b"]
         h = copy_to_model(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]), tp)
-        xq = _mm(h, lp["xq_w"]) + lp["xq_b"]             # [B, S, HD]
+        xq = _mm(h, lp["xq_w"], lp["xq_b"])               # [B, S, HD]
         xk, xv, xks, xvs = _kv_at(cross_kv, l)
         T_a = xk.shape[1]
         attn = _attend_views(

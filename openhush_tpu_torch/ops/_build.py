@@ -53,6 +53,7 @@ SIGNATURES = {
     "oh_limiter_gain_serial": [_P, _P, _LL, _I, _F, _P],
     "oh_dsp_scratch_floats": [_LL, _I],
     "oh_noise_floor": [_P, _P, _P, _I, _I, _I, _P],
+    "oh_w8a16": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 RESTYPES = {"oh_dsp_scratch_floats": _LL}

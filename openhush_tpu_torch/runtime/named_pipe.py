@@ -258,7 +258,13 @@ class NamedPipeClient:
                     raise TimeoutError("named-pipe response timeout")
                 r, _, _ = select.select([rsp], [], [], 0.25)
                 if r:
-                    data = os.read(rsp, 4096)
+                    # With no writer the FIFO reads as ready (end of file);
+                    # the server may open its write side before the read,
+                    # which then finds a writer and no data yet.
+                    try:
+                        data = os.read(rsp, 4096)
+                    except BlockingIOError:
+                        continue
                     if data:
                         buf += data
             return _parse_line(buf)

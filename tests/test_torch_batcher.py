@@ -38,6 +38,16 @@ NO_GUARDS = dict(temperatures=(0.0,), logprob_threshold=-1e9,
                  no_speech_threshold=2.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's small-shape tests: the decode
+    loops run thousands of tiny ops, and the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _pinned(monkeypatch):
     monkeypatch.setattr(jax_model, "_GELU_MODE", "erf")

@@ -35,6 +35,16 @@ H, D = 4, 64
 HD = H * D
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's small-shape tests: the decode
+    loops run thousands of tiny ops, and the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_round(x):
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 

@@ -34,6 +34,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = CONFIGS["test"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's small-shape tests: the decode
+    loops run thousands of tiny ops, and the test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _pinned(monkeypatch):
     monkeypatch.setattr(jax_model, "_GELU_MODE", "erf")
