@@ -6,8 +6,8 @@ Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a;
      ptxas's registers and spills), and the count of wgmma instructions in
-     K2's bf16 and fp32 kernels, K6 and K7 (cuobjdump; a missing cuobjdump
-     fails the phase);
+     K2's bf16 and fp32 kernels, K6, K7 and W8A16's three tile-mode kernels
+     (cuobjdump; a missing cuobjdump fails the phase);
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
      (large-v3, one 30 s window; for the decode attention K4/K5, the
@@ -58,13 +58,20 @@ Phases, each printing its own lines and its seconds:
      K4 and K5 at the daemon's shapes (audio_ctx 256 and 512: 2T mel
      frames, T keys, 8 slots), timed beside their bounds and SDPA; the int8
      decoder weights' product (csrc/w8a16.cu, W8A16) at 1, 5, 8, 20, 32,
-     448, 1500 and 12000 rows on large-v3's [1280, 1280], [1280, 5120] and
-     [5120, 1280] and a tensor-parallel rank's [1280, 640] in bf16 (the q
-     projection's bias folded on [1280, 1280]), at 1 and 8 rows in fp32:
+     96, 448, 1500 and 12000 rows on large-v3's [1280, 1280], [1280, 5120]
+     and [5120, 1280] and a tensor-parallel rank's [1280, 640] in bf16 (the
+     q projection's bias folded on [1280, 1280]), at 1, 8 and 40 rows in
+     fp32:
      the kernel and the plain version within the tolerance helper's bound
      of the fp32 product, the kernel's bits the same over two launches,
      timed cold beside the plain version, the cast-plus-mm pair, the
-     bound and, where the card's torch has it, _weight_int8pack_mm;
+     bound and, where the card's torch has it, _weight_int8pack_mm; and
+     its grouped launches (q/k/v on three [1280, 1280] levels with q's and
+     v's biases at 1, 8, 32 and 448 rows; xk/xv at 1500 rows): one launch
+     counted, each output within the tolerance helper's bound, the same
+     bits over two launches and, where the two grids take one cluster size
+     (oh_w8a16_cluster), the single launches' bits, timed beside the
+     single launches and the cast-plus-mm pairs;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -102,10 +109,10 @@ Phases, each printing its own lines and its seconds:
      preprocess and rnn_gains on 500 frames;
   4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
      quantize_encoder) through phase 4's 20 s request (the W8A16 kernel
-     counted: 8 launches a decoder layer a flat call or long prefill, 2 a
-     layer a cross-KV) and 4b's trace (a decoder call's device and host
-     time and the request's x-realtime beside phase 4's bf16 ones), the
-     encoder's device time W8A8 against bf16 at B=1 and B=8 (and
+     counted: 6 launches a decoder layer a flat call or long prefill, q/k/v
+     in one, 1 a layer a cross-KV) and 4b's trace (a decoder call's device
+     and host time and the request's x-realtime beside phase 4's bf16
+     ones), the encoder's device time W8A8 against bf16 at B=1 and B=8 (and
      torch._int_mm on column- and row-major levels), then phase 4c's run
      on a server with an int8 self-cache (K3 counted once per layer and
      flat decoder call besides the cross-KV's), its self-cache bytes
@@ -1556,12 +1563,15 @@ def phase_multi_attention(da, quantize):
 
 
 # The W8A16 phase: rows of x (one-shot 1, one-shot beam 5, serving 8, a
-# 4-group beam server 20, the spec server's verify 32, a 448-token block,
-# one window's cross-KV 1500 and eight windows' 12000), at large-v3's
-# decoder widths and a tensor-parallel rank's [1280, 640]; fp32 x (the tiny
-# model's path) at 1 and 8 rows.
-W8A16_MS = (1, 5, 8, 20, 32, 448, 1500, 12000)
-W8A16_FP32_MS = (1, 8)
+# 4-group beam server 20, the spec server's verify 32, a 96-row prefill (the
+# decode mode's grid of several 32-row blocks, below the tile mode's
+# crossover but on [1280, 5120]), a 448-token block, one window's cross-KV
+# 1500 and eight windows' 12000), at large-v3's decoder widths and a
+# tensor-parallel rank's [1280, 640]; fp32 x (the tiny model's path) at 1
+# and 8 rows and at 40 (three 16-row blocks, as its 1500-row cross-KV
+# takes).
+W8A16_MS = (1, 5, 8, 20, 32, 96, 448, 1500, 12000)
+W8A16_FP32_MS = (1, 8, 40)
 W8A16_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280), (1280, 640))
 
 
@@ -1662,22 +1672,110 @@ def phase_w8a16(w8a16, whisper):
                                bound_ms=bound, bound_by=by,
                                library_ms=library_ms)
         del ws
+    row["groups"] = phase_w8a16_groups(w8a16, whisper)
     return row
+
+
+# The grouped launches of the decoder's products that share an input: q, k
+# and v of one h at the decode rows (q and v with their biases, k with
+# none) and at a 448-token prefill (the tile mode over three members), and
+# the cross-KV's xk and xv (xv's bias) at a window's rows.
+W8A16_GROUPS = (("q/k/v", (True, False, True), (1, 8, 32, 448)),
+                ("xk/xv", (False, True), (1500,)))
+
+
+def phase_w8a16_groups(w8a16, whisper):
+    """Each W8A16_GROUPS group on [1280, 1280] levels in bf16: one launch
+    counted a call, each member within the tolerance helper's bound, the
+    same bits over two launches and, where the group's grid and a single
+    launch's take one cluster size along I (oh_w8a16_cluster; the tile mode
+    never splits I), the single launches' bits; timed over enough copies
+    of the levels to exceed the 50 MB L2, beside the members' single
+    launches and their cast-plus-mm pairs. Returns one dict a group and
+    row count."""
+    from openhush_tpu_torch.ops import _build
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 122)
+    lib = _build.library()
+    I = O = 1280
+    tiles = O // 128
+    out = []
+    for name, has_bias, rows in W8A16_GROUPS:
+        n = len(has_bias)
+        sets = [[whisper._quantize_weight(0.05 * torch.randn(
+            I, O, generator=g, device=dev)) for _ in range(n)]
+            for _ in range(max(2, math.ceil(64e6 / (n * I * O))))]
+        biases = [0.5 * torch.randn(O, generator=g, device=dev)
+                  if b else None for b in has_bias]
+        for M in rows:
+            x = torch.randn(M, I, generator=g, device=dev).to(torch.bfloat16)
+            bs = [None if b is None else b.to(torch.bfloat16) for b in biases]
+            pairs = lambda ws: list(zip(ws, bs))
+            what = f"W8A16 group {name} [{M}, {I}] x {n} x [{I}, {O}]"
+            before = w8a16.mm_w8a16.launches
+            ys = w8a16.mm_w8a16_group(x, pairs(sets[0]))
+            check(w8a16.mm_w8a16.launches == before + 1,
+                  f"{what}: one launch counted")
+            again = w8a16.mm_w8a16_group(x, pairs(sets[0]))
+            singles = [w8a16.mm_w8a16(x, w, b) for w, b in pairs(sets[0])]
+            torch.cuda.synchronize()
+            order = (lib.oh_w8a16_cluster(M, I, n * tiles, 1)
+                     == lib.oh_w8a16_cluster(M, I, tiles, 1))
+            ratios = []
+            for k, (w, b) in enumerate(pairs(sets[0])):
+                ok, ratio = w8a16.within_tolerance(ys[k], x, w, b)
+                ratios.append(ratio)
+                check(ok and torch.equal(ys[k], again[k])
+                      and bool(torch.isfinite(ys[k]).all())
+                      and ys[k].is_contiguous()
+                      and (not order or torch.equal(ys[k], singles[k])),
+                      f"{what}, member {k}")
+            equal = all(torch.equal(a, b) for a, b in zip(ys, singles))
+            timed = functools.partial(time_ms, iters=20 if M <= 32 else 6,
+                                      warmup=3 if M <= 32 else 1)
+            ms = timed(rotate([functools.partial(
+                w8a16.mm_w8a16_group, x, pairs(ws)) for ws in sets]))
+            singles_ms = timed(rotate([
+                (lambda ws: lambda: [w8a16.mm_w8a16(x, w, b)
+                                     for w, b in pairs(ws)])(ws)
+                for ws in sets]))
+            library_ms = timed(rotate([
+                (lambda ws: lambda: [torch.mm(x, w["q"].to(torch.bfloat16),
+                                              out_dtype=torch.float32)
+                                     for w in ws])(ws) for ws in sets]))
+            bound, by = bound_ms(
+                n * (I * O + 4 * O) + 2 * M * I + n * 2 * M * O
+                + sum(2 * O for b in bs if b is not None),
+                n * 2 * M * I * O, "bf16")
+            log(f"  {what}: vs the fp32 reference at most {max(ratios):.3f} "
+                f"of the tolerance; two launches the same bits; the single "
+                f"launches' bits {'yes' if equal else 'no'} (one order: "
+                f"{order}); group {ms:.4f} ms, {n} single launches "
+                f"{singles_ms:.4f} ms, {n} cast + mm {library_ms:.4f} ms; "
+                f"bound {bound * 1e3:.3f} us ({by})")
+            out.append(dict(group=name, M=M, I=I, O=O, members=n,
+                            ms=ms, singles_ms=singles_ms,
+                            library_ms=library_ms, bound_ms=bound,
+                            bound_by=by, equal_to_singles=equal,
+                            one_order=order, max_ratio=max(ratios)))
+        del sets
+    return out
 
 
 def check_w8a16_launches(launches, params, n_layer, flat_calls, prefills,
                          cross_kvs):
-    """Every product with an int8 decoder weight launched the W8A16 kernel
-    once, and a dense stack launched none: 8 a decoder layer (q, k, v, o,
-    xq, xo, fc1, fc2) for each flat decoder call and each long prefill, 2
-    a layer (xk, xv) for each cross-KV computation."""
+    """Every product with an int8 decoder weight launched the W8A16 kernel,
+    products of one input in one launch, and a dense stack launched none: 6
+    a decoder layer (q/k/v together, o, xq, xo, fc1, fc2) for each flat
+    decoder call and each long prefill, 1 a layer (xk/xv together) for each
+    cross-KV computation."""
     got = launches["mm_w8a16"]
     int8 = isinstance(params["decoder"]["layers"]["q_w"], dict)
-    want = (n_layer * (8 * (flat_calls + prefills) + 2 * cross_kvs)
+    want = (n_layer * (6 * (flat_calls + prefills) + cross_kvs)
             if int8 else 0)
     log(f"  W8A16 launches {got} (expected "
-        + (f"{n_layer} x (8 x ({flat_calls} flat decoder calls + "
-           f"{prefills} long prefills) + 2 x {cross_kvs} cross-KV "
+        + (f"{n_layer} x (6 x ({flat_calls} flat decoder calls + "
+           f"{prefills} long prefills) + 1 x {cross_kvs} cross-KV "
            f"computations) = {want})" if int8 else "0: dense weights)"))
     check(got == want, "the W8A16 kernel ran once for every int8-weight "
           "product")
@@ -5819,11 +5917,15 @@ TC_KERNELS = {
     "K2 fp32": "25flash_attention_tc_kernelILi3E",
     "K6 fp32": "23flash_bwd_dkv_tc_kernelIfLi3E",
     "K7 fp32": "22flash_bwd_dq_tc_kernelIfLi3E",
+    "W8A16 tile BN=64": "17w8a16_tile_kernelILi64E",
+    "W8A16 tile BN=128": "17w8a16_tile_kernelILi128E",
+    "W8A16 tile BN=256": "17w8a16_tile_kernelILi256E",
 }
 
 
 def phase_sass(so, nvcc: str) -> None:
-    """K2 (bf16 and fp32), K6 and K7 run on the tensor cores: count each
+    """K2 (bf16 and fp32), K6, K7 and W8A16's tile mode (its three tile
+    heights) run on the tensor cores: count each
     one's warpgroup MMA instructions (HGMMA) in the built library's SASS,
     by the toolkit's cuobjdump, and fail if one has none or if cuobjdump is
     missing."""
@@ -6294,7 +6396,8 @@ def main() -> int:
     _build.library()
     log(f"phase 1 build: {so.name} in {time.monotonic() - t:.1f} s")
     for line in open(str(so) + ".log"):
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Performance Loss" in line):
             log("  " + line.strip())
     phase_sass(so, _build.nvcc())
 

@@ -1,7 +1,7 @@
 // Helpers for Hopper's asynchronous copies: mbarriers in shared memory
-// (K2's TMA ring, K5's exchanges between the CTAs of a cluster), TMA tile
-// copies, and cuTensorMapEncodeTiled from libcuda, found through the
-// runtime so that the library needs no link against libcuda.
+// (K2's and W8A16's TMA rings, K5's exchanges between the CTAs of a
+// cluster), TMA tile copies, and cuTensorMapEncodeTiled from libcuda, found
+// through the runtime so that the library needs no link against libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -40,6 +40,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// Whether the barrier's phase of parity `parity` has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile("{\n .reg .pred p;\n"
+               " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               " selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // The same wait with acquire at cluster scope: for data that other CTAs of
 // the cluster wrote and counted on the barrier (st.async).
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
@@ -61,6 +72,16 @@ __device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map, int c
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
         "r"(smem_u32(bar)) : "memory");
+}
+
+// One box of a 2-D tensor map at coordinates (c0 innermost, c1).
+__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -22,7 +22,8 @@ Differences from the reference, each with its reason:
   (ops/w8a16.py), which reads the levels once as int8 where XLA fuses
   their convert into the dot; where the reference adds a bias right after
   the product (`_mm(x, w) + b`) the kernel's epilogue adds it, rounding
-  as the separate add does.
+  as the separate add does. Products of one input (q, k and v of a
+  layer's h; the cross-KV's xk and xv) share one launch (`_mm_group`).
 - The W8A8 encoder's int8 weights are stored column-major in each layer
   (the same [in, out] values): `torch._int_mm` (cuBLASLt's int8 GEMM)
   runs several times faster on a column-major second operand on the H100
@@ -63,7 +64,8 @@ from openhush_tpu_torch.ops.decode_attention import (ancestry_rows,
                                                      div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads_kv
-from openhush_tpu_torch.ops.w8a16 import mm_w8a16
+from openhush_tpu_torch.ops.w8a16 import (matmul_f32, mm_w8a16,
+                                          mm_w8a16_group)
 from openhush_tpu_torch.parallel.sharding import (copy_to_model,
                                                   reduce_from_model)
 
@@ -163,14 +165,10 @@ def _row(x, w, tp):
     reduced in its own dtype. Without a group, `_mm`."""
     if tp is None:
         return _mm(x, w)
-    if x.dtype == torch.float32 or (torch.is_grad_enabled() and (
-            x.requires_grad or w.requires_grad)):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = x @ w
-    elif x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32
-                     ).view(*x.shape[:-1], w.shape[-1])
     else:
-        y = x.float() @ w.float()
+        y = matmul_f32(x, w)
     return reduce_from_model(y, tp).to(x.dtype)
 
 
@@ -205,6 +203,15 @@ def _mm(x, w, b=None):
     if isinstance(w, dict):
         return mm_w8a16(x, w, b)
     return x @ w if b is None else x @ w + b
+
+
+def _mm_group(x, members) -> tuple:
+    """`_mm(x, w, b)` for each (w, b) of `members`, products of one x: int8
+    weights in one launch of the W8A16 kernel (ops/w8a16.py:
+    mm_w8a16_group), plain weights each as `_mm` runs them."""
+    if all(isinstance(w, dict) for w, _ in members):
+        return mm_w8a16_group(x, members)
+    return tuple(_mm(x, w, b) for w, b in members)
 
 
 def _quantize_weight(w: torch.Tensor) -> dict:
@@ -381,8 +388,8 @@ def init_quant_kv_cache(cfg: WhisperConfig, batch: int,
 def _cross_kv_layers(params: Params, audio_features: torch.Tensor, tp):
     audio_features = copy_to_model(audio_features, tp)
     for lp in _layers(params["decoder"]["layers"]):
-        yield (_mm(audio_features, lp["xk_w"]),
-               _mm(audio_features, lp["xv_w"], lp["xv_b"]))
+        yield _mm_group(audio_features, ((lp["xk_w"], None),
+                                         (lp["xv_w"], lp["xv_b"])))
 
 
 def _decoder_tp(cfg: WhisperConfig, params: Params):
@@ -486,13 +493,18 @@ def _new_kv(cache, k_new, v_new, n_head: int):
     return k8, v8, ks, vs
 
 
-def _write_self_kv(cache, l, h, lp, n_head: int, write):
-    """Project layer l's new keys and values from h, put them into the
-    self-cache with write(buf, new) (with their scales in an int8 cache)
-    and return the layer's (k, v, k_scale, v_scale)."""
+def _qkv(h, lp) -> tuple:
+    """A layer's query, key and value projections of h (k has no bias)."""
+    return _mm_group(h, ((lp["q_w"], lp["q_b"]), (lp["k_w"], None),
+                         (lp["v_w"], lp["v_b"])))
+
+
+def _write_self_kv(cache, l, k_new, v_new, n_head: int, write):
+    """Put layer l's new keys and values into the self-cache with
+    write(buf, new) (with their scales in an int8 cache) and return the
+    layer's (k, v, k_scale, v_scale)."""
     bufs = _kv_at(cache, l)
-    new = _new_kv(cache, _mm(h, lp["k_w"]), _mm(h, lp["v_w"], lp["v_b"]),
-                  n_head)
+    new = _new_kv(cache, k_new, v_new, n_head)
     for buf, t in zip(bufs, new):
         if t is not None:
             write(buf, t)
@@ -579,8 +591,8 @@ def _flat_layers(cfg: WhisperConfig, params: Params, x: torch.Tensor, pos,
                                                     t.shape[-1])
     for l, lp in enumerate(_layers(dec["layers"])):
         h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
-        q = _mm(h, lp["q_w"], lp["q_b"])                 # [B, S, HD]
-        k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
+        q, k_new, v_new = _qkv(h, lp)                    # [B, S, HD] each
+        k, v, ks, vs = _write_self_kv(cache, l, k_new, v_new, n_head, write)
         if beam is None:
             attn = attend_decode(q, k, v, lengths, n_head, ks=ks, vs=vs,
                                  causal=True)
@@ -761,8 +773,8 @@ def decode(cfg: WhisperConfig, params: Params, tokens: torch.Tensor,
 
     for l, lp in enumerate(_layers(dec["layers"])):
         h = copy_to_model(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]), tp)
-        q = _mm(h, lp["q_w"], lp["q_b"])                 # [B, S, HD]
-        k, v, ks, vs = _write_self_kv(cache, l, h, lp, n_head, write)
+        q, k_new, v_new = _qkv(h, lp)                    # [B, S, HD] each
+        k, v, ks, vs = _write_self_kv(cache, l, k_new, v_new, n_head, write)
         attn = _attend_views(
             q.view(B, S, n_head, dh), k.view(B, max_len, n_head, dh),
             v.view(B, max_len, n_head, dh), self_mask, ks=ks, vs=vs)

@@ -53,7 +53,8 @@ SIGNATURES = {
     "oh_limiter_gain_serial": [_P, _P, _LL, _I, _F, _P],
     "oh_dsp_scratch_floats": [_LL, _I],
     "oh_noise_floor": [_P, _P, _P, _I, _I, _I, _P],
-    "oh_w8a16": [_P] * 5 + [_I] * 4 + [_P],
+    "oh_w8a16_group": [_P] + ([_P] * 4 + [_I]) * 3 + [_I] * 4 + [_P],
+    "oh_w8a16_cluster": [_I] * 4,
 }
 
 RESTYPES = {"oh_dsp_scratch_floats": _LL}

@@ -3,6 +3,7 @@ weights' product) on one GPU.
 
     python3 tools/torch_w8a16_probe.py [--alone] [--host] [--variant FILE]
                                        [--unchecked] [--calls N]
+                                       [--crossover] [--big]
 
 Prints the card's name and power limit and ptxas's registers and spills
 for the W8A16 kernels, then runs chip_smoke.phase_w8a16: every shape of
@@ -22,10 +23,18 @@ something else) and times the two in turns (this, variant, variant,
 this) at each shape. --calls N instead times a large-v3 decoder call with
 int8 decoder weights against one with bf16 weights, N times each in turns
 (phase 4b's decode trace, the whole library built), and prints each
-side's host and device medians. Needs one GPU; exits 1 without one.
+side's host and device medians. --crossover times the decode mode
+(mma.sync) against the tile mode (wgmma) at BN = 64, 128 and 256 in turns at
+32-448 rows on every phase-2 shape: four copies of w8a16.cu built as
+--variant builds are, each with takes_tile and tile_bn forced to one mode
+(nvcc at once, seconds). --big times the tile mode at 48000 rows (a
+B = 32 batch's cross-KV) on [1280, 1280], beside the cast-plus-mm pair and
+the bound, after checking it with the tolerance helper. Needs one GPU;
+exits 1 without one.
 """
 
 import argparse
+import concurrent.futures
 import ctypes
 import functools
 import subprocess
@@ -52,19 +61,23 @@ def build_alone(src: Path, name: str) -> ctypes.CDLL:
     so = OUT / f"{name}.so"
     t = time.monotonic()
     run = subprocess.run([_build.nvcc(), *_build.ARCH, *_build.FLAGS,
-                          "-shared", str(src), "-o", str(so)],
+                          "-I", str(_build.CSRC), "-shared", str(src), "-o",
+                          str(so)],
                          capture_output=True, text=True)
     print(f"build {src.name} as {name}: rc {run.returncode} in "
           f"{time.monotonic() - t:.1f} s", flush=True)
     for line in (run.stdout + run.stderr).splitlines():
         if "registers" in line or "spill" in line or "error" in line \
-                or "Function properties" in line or "Compiling" in line:
+                or "Function properties" in line or "Compiling" in line \
+                or "Performance Loss" in line:
             print("  " + line.strip())
     if run.returncode:
         raise RuntimeError(f"nvcc failed for {src}")
     lib = ctypes.CDLL(str(so))
-    lib.oh_w8a16.argtypes = _build.SIGNATURES["oh_w8a16"]
-    lib.oh_w8a16.restype = ctypes.c_int
+    for name, argtypes in _build.SIGNATURES.items():
+        if name.startswith("oh_w8a16") and hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -119,18 +132,23 @@ def host_costs(n=2000):
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (x.data_ptr(), w["q"].data_ptr(), w["s"].data_ptr(), b.data_ptr(),
-            y.data_ptr(), 1, 1280, 1280, 1, stream)
+            y.data_ptr(), 1280, *(None, None, None, None, 0) * 2, 1, 1, 1280,
+            1, stream)
     parts = {
         "dense x @ w + b": lambda: x @ wd + b,
         "plain version": lambda: w8a16.mm_w8a16_plain(x, w, b),
         "mm_w8a16": lambda: w8a16.mm_w8a16(x, w, b),
-        "  its checks": lambda: w8a16._check(x, w["q"], w["s"], b),
+        "  its checks": lambda: w8a16._check(x, ((w["q"], w["s"], b),)),
+        "q/k/v group (mm_w8a16_group)": lambda: w8a16.mm_w8a16_group(
+            x, ((w, b), (w, None), (w, b))),
+        "q/k/v as 3 x mm_w8a16": lambda: [w8a16.mm_w8a16(x, w, bb)
+                                          for bb in (b, None, b)],
         "  torch.cuda.current_stream": lambda: torch.cuda.current_stream(
             x.device).cuda_stream,
         "  torch._C._cuda_getCurrentRawStream": lambda: (
             torch._C._cuda_getCurrentRawStream(0)),
         "  new_empty": lambda: x.new_empty((1, 1, 1280)),
-        "  the C entry alone": lambda: lib.oh_w8a16(*args),
+        "  the C entry alone": lambda: lib.oh_w8a16_group(*args),
     }
     for name, fn in parts.items():
         for _ in range(50):
@@ -177,6 +195,94 @@ def decoder_calls(pairs: int):
           flush=True)
 
 
+CROSSOVER_MS = (32, 48, 64, 96, 128, 192, 256, 320, 384, 448)
+
+
+def forced(mode: str) -> Path:
+    """A copy of csrc/w8a16.cu whose launcher runs bf16 x in one mode at
+    every M: "decode", or "tile64", "tile128", "tile256" (the tile mode at
+    that BN). Its path, under the probe's build folder."""
+    src = (_build.CSRC / "w8a16.cu").read_text()
+    takes = "bool takes_tile(int M, int I, int tiles, int dtype) {\n"
+    bn = "int tile_bn(int M, int tiles, int& bn) {\n"
+    if takes not in src or bn not in src:
+        raise RuntimeError("w8a16.cu: takes_tile or tile_bn not found")
+    tile = mode != "decode"
+    src = src.replace(takes, takes + f"  if (dtype == 1) return {str(tile).lower()};\n")
+    if tile:
+        src = src.replace(bn, bn + f"  bn = {mode[4:]};\n  return 0;\n")
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"w8a16_{mode}.cu"
+    path.write_text(src)
+    return path
+
+
+def crossover():
+    """The decode mode against the tile mode (BN 64, 128 and 256) at
+    CROSSOVER_MS rows on every phase-2 shape, each from a copy of
+    w8a16.cu forced to that mode (`forced`), in turns (decode, each tile
+    size, then the same backwards), 64 MB of levels rotated; each mode
+    checked once with the tolerance helper."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 123)
+    modes = ("decode", "tile64", "tile128", "tile256")
+    with concurrent.futures.ThreadPoolExecutor(len(modes)) as pool:
+        libs = dict(zip(modes, pool.map(
+            lambda m: build_alone(forced(m), m), modes)))
+    base = _build._lib
+    try:
+        for I, O in chip_smoke.W8A16_SHAPES:
+            ws = [whisper._quantize_weight(0.05 * torch.randn(
+                I, O, generator=g, device=dev)) for _ in range(
+                max(2, -(-int(64e6) // (I * O))))]
+            for M in CROSSOVER_MS:
+                x = torch.randn(M, I, generator=g, device=dev).to(
+                    torch.bfloat16)
+                calls = chip_smoke.rotate([functools.partial(
+                    w8a16.mm_w8a16, x, w) for w in ws])
+                times = {k: [] for k in modes}
+                for k in modes:
+                    _build._lib = libs[k]
+                    y = w8a16.mm_w8a16(x, ws[0])
+                    torch.cuda.synchronize()
+                    ok, _ = w8a16.within_tolerance(y, x, ws[0])
+                    chip_smoke.check(ok, f"{k} at [{M}, {I}] x [{I}, {O}]")
+                for k in modes + modes[::-1]:
+                    _build._lib = libs[k]
+                    times[k].append(chip_smoke.time_ms(calls, iters=10))
+                mean = {k: sum(v) / len(v) for k, v in times.items()}
+                print(f"  crossover [{M}, {I}] x [{I}, {O}]: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in mean.items()),
+                      flush=True)
+    finally:
+        _build._lib = base
+
+
+def big(M=48000, I=1280, O=1280):
+    """The tile mode at M rows on [I, O]: checked with the tolerance helper
+    and the same bits over two launches, timed beside the cast-plus-mm
+    pair and the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 124)
+    w = whisper._quantize_weight(0.05 * torch.randn(I, O, generator=g,
+                                                    device=dev))
+    x = torch.randn(M, I, generator=g, device=dev).to(torch.bfloat16)
+    y, again = w8a16.mm_w8a16(x, w), w8a16.mm_w8a16(x, w)
+    torch.cuda.synchronize()
+    ok, ratio = w8a16.within_tolerance(y, x, w)
+    chip_smoke.check(ok and torch.equal(y, again), f"W8A16 at [{M}, {I}]")
+    ms = chip_smoke.time_ms(lambda: w8a16.mm_w8a16(x, w), iters=6,
+                            warmup=1)
+    lib_ms = chip_smoke.time_ms(lambda: torch.mm(
+        x, w["q"].to(torch.bfloat16), out_dtype=torch.float32), iters=6,
+        warmup=1)
+    bound, by = chip_smoke.bound_ms(I * O + 2 * M * I + 2 * M * O + 4 * O,
+                                    2 * M * I * O, "bf16")
+    print(f"  W8A16 [{M}, {I}] x [{I}, {O}]: {ratio:.3f} of the tolerance; "
+          f"kernel {ms:.4f} ms, cast + mm {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_w8a16_probe: no CUDA device", file=sys.stderr)
@@ -187,6 +293,8 @@ def main() -> int:
     ap.add_argument("--unchecked", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--calls", type=int, default=0)
+    ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--big", action="store_true")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -203,7 +311,8 @@ def main() -> int:
         part = log[log.index("== w8a16.cu"):]
         part = part[:part.index("\n== ") if "\n== " in part else None]
         for line in part.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "Performance Loss" in line):
                 print("  " + line.strip())
     if args.calls:
         decoder_calls(args.calls)
@@ -213,6 +322,10 @@ def main() -> int:
     t = time.monotonic()
     chip_smoke.phase_w8a16(w8a16, whisper)
     print(f"phase_w8a16: {time.monotonic() - t:.1f} s", flush=True)
+    if args.crossover:
+        crossover()
+    if args.big:
+        big()
     if args.variant:
         compare([(Path(v).name, build_alone(Path(v), f"variant{i}"))
                  for i, v in enumerate(args.variant)],
