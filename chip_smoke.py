@@ -6,8 +6,9 @@ Phases, each printing its own lines and its seconds:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      the build of every kernel in openhush_tpu_torch/csrc (nvcc, sm_90a;
      ptxas's registers and spills), and the count of wgmma instructions in
-     K2's bf16 and fp32 kernels, K6, K7 and W8A16's three tile-mode kernels
-     (cuobjdump; a missing cuobjdump fails the phase);
+     K2's bf16 and fp32 kernels, K6, K7, W8A16's three tile-mode kernels
+     and W8A8's product (IGMMA, the int8 form; cuobjdump; a missing
+     cuobjdump fails the phase);
   2. each kernel of the transcription path against its plain PyTorch version
      on the same inputs on the card, at the shapes the path gives it
      (large-v3, one 30 s window; for the decode attention K4/K5, the
@@ -71,7 +72,17 @@ Phases, each printing its own lines and its seconds:
      counted, each output within the tolerance helper's bound, the same
      bits over two launches and, where the two grids take one cluster size
      (oh_w8a16_cluster), the single launches' bits, timed beside the
-     single launches and the cast-plus-mm pairs;
+     single launches and the cast-plus-mm pairs; the W8A8 encoder layer's
+     two kernels (csrc/w8a8.cu): the per-row quantize (plain mode the
+     plain version's bits, also on rows with a NaN, +-inf and zeros; fused
+     with the layer norm, levels within one on <= 1e-3 and scales within
+     a dtype ulp) at [1500 and 12000, 1280 and 5120] in bf16 and tiny's
+     widths in fp32, and the int8 product with its epilogue (q/k/v in one
+     launch, o and fc2 with the bias and residual: the plain version's
+     bits; fc1's GELU within one ulp, erf and tanh; the no-option fp32
+     product) at 1500 and 12000 rows in bf16 and tiny's widths in fp32,
+     each the same bits over two launches, timed cold beside the plain
+     version, the bound and torch._int_mm with its folds;
   3. a small-input reference check: the "tiny" model in fp32 on the card
      (kernels) against the same weights on the CPU (plain versions); then
      an EngineServer on the card (three windows over two slots, t=0)
@@ -110,13 +121,14 @@ Phases, each printing its own lines and its seconds:
   4d. the int8 rungs on the same weights: WhisperEngine(quantize_weights,
      quantize_encoder) through phase 4's 20 s request (the W8A16 kernel
      counted: 6 launches a decoder layer a flat call or long prefill, q/k/v
-     in one, 1 a layer a cross-KV) and 4b's trace (a decoder call's device
-     and host time and the request's x-realtime beside phase 4's bf16
-     ones), the encoder's device time W8A8 against bf16 at B=1 and B=8 (and
-     torch._int_mm on column- and row-major levels), then phase 4c's run
-     on a server with an int8 self-cache (K3 counted once per layer and
-     flat decoder call besides the cross-KV's), its self-cache bytes
-     against bf16;
+     in one, 1 a layer a cross-KV; the W8A8 kernels counted: 4 quantizes
+     and 4 products an encoder layer and encode, torch._int_mm never) and
+     4b's trace (a decoder call's device and host time and the request's
+     x-realtime beside phase 4's bf16 ones), the encoder's device time
+     W8A8 against bf16 at B=1 and B=8 (W8A8's top kernels), then phase
+     4c's run on a server with an int8 self-cache (K3 counted once per
+     layer and flat decoder call besides the cross-KV's; the W8A8 kernels
+     as in the one-shot), its self-cache bytes against bf16;
   4e. beam search on the bf16 weights (K=5): the one-shot engine with
      beam_size=5 on the 20 s request (the T=0 rung alone), one window's
      beam decode on the host clock and traced, then
@@ -236,8 +248,9 @@ int8 self-cache row and K3's write row, from 4e's bf16 beam server for K4's
 beam-mode row and K5's multi-query row (with 4e's one-shot and int8 and
 4f's verify launches of the mode beside), from 4f's one-shot speculative engine for the two verify
 rows, from 4c-audio's preprocess server for the three DSP rows, from 4d's
-one-shot int8 engine for the W8A16 row (its server's beside, every shape
-of phase 2 under "shapes"); K1-K5 also
+one-shot int8 engine for the W8A16 row and the two W8A8 rows (their
+server's beside, every shape of phase 2 under "shapes"; the W8A8
+product's row also carries 4d's encoder device times); K1-K5 also
 carry phase 4g's launches as distill_launches, phase 11's as
 record_launches and phase 12's as evaluate_launches, K1-K5 and the limiter
 phase 10's as daemon_launches, K1-K7 phase 13's per rank as
@@ -276,9 +289,10 @@ SERVE_SECS = (5.0, 10.0, 15.0, 20.0, 25.0, 30.0, 38.0, 45.0)
 # Spin-kernel cycles per second: the H100's top SM clock (1.98 GHz); a
 # slower clock only makes the spin longer.
 SPIN_CYCLES_PER_S = 2.0e9
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s (int8:
+# OP/s).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -1781,6 +1795,337 @@ def check_w8a16_launches(launches, params, n_layer, flat_calls, prefills,
           "product")
 
 
+def check_w8a8_launches(launches, encodes):
+    """Every encode on W8A8 weights ran its layers on the W8A8 kernels, 4
+    quantize launches (ln1 and ln2 fused) and 4 product launches (q/k/v in
+    one) a layer: 4 x the encoder layers that `counting_encodes` counted
+    on int8 weights (dense weights launch none), and torch._int_mm (the
+    plain version's product) never ran."""
+    want = 4 * encodes["int8_layers"]
+    got = (launches["mm_w8a8"], launches["quantize_rows"])
+    log(f"  W8A8 launches: products {got[0]}, quantizes {got[1]} (expected "
+        f"4 x {encodes['int8_layers']} int8 encoder layers over "
+        f"{encodes['int8']} of {encodes['all']} encodes = {want}); "
+        f"torch._int_mm calls {launches['_int_mm']}")
+    check(got == (want, want) and launches["_int_mm"] == 0,
+          "the W8A8 kernels ran 4 + 4 times an encoder layer, and "
+          "torch._int_mm never")
+
+
+@contextlib.contextmanager
+def counting_int_mm():
+    """Counts torch._int_mm's calls (the W8A8 plain version's product) into
+    a `_int_mm` entry beside the kernels' counters while it is open."""
+    int_mm = torch._int_mm
+
+    def counted(*args, **kw):
+        counted.launches += 1
+        return int_mm(*args, **kw)
+
+    counted.launches = 0
+    counted.__name__ = "_int_mm"
+    torch._int_mm = counted
+    try:
+        yield counted
+    finally:
+        torch._int_mm = int_mm
+
+
+@contextlib.contextmanager
+def counting_encodes(whisper):
+    """Counts model.encode's calls while it is open: all of them, those on
+    int8 (W8A8) encoder weights, and the encoder layers those ran."""
+    count = {"all": 0, "int8": 0, "int8_layers": 0}
+    encode = whisper.encode
+
+    def counted(c, params, *args, **kw):
+        count["all"] += 1
+        if isinstance(params["encoder"]["layers"]["q_w"], dict):
+            count["int8"] += 1
+            count["int8_layers"] += c.n_audio_layer
+        return encode(c, params, *args, **kw)
+
+    whisper.encode = counted
+    try:
+        yield count
+    finally:
+        whisper.encode = encode
+
+
+# The W8A8 encoder layer's shapes: its per-row quantizes ([rows, width],
+# with the layer norm or not) and its products (name, I, O, members with a
+# bias, GELU, residual), at a window's 1500 rows and B = 8's 12000 on
+# large-v3 in bf16, and on tiny's widths (384, MLP 1536) in fp32.
+W8A8_QUANTIZES = (("ln1/ln2", 1280, True), ("a", 1280, False),
+                  ("g", 5120, False))
+W8A8_PRODUCTS = (("q/k/v", 1280, 1280, (True, False, True), None, False),
+                 ("o", 1280, 1280, (True,), None, True),
+                 ("fc1", 1280, 5120, (True,), "erf", False),
+                 ("fc2", 5120, 1280, (True,), None, True))
+W8A8_MS = (1500, 12000)
+W8A8_TINY = 384
+
+
+def ulp_at(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of `dtype`'s values at |v| (fp32 out)."""
+    info = torch.finfo(dtype)
+    _, e = torch.frexp(v.float().abs().clamp(min=info.tiny))
+    return torch.ldexp(torch.full_like(v.float(), info.eps), e - 1)
+
+
+def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                                 b[~nan]))
+
+
+def copies_for_cold(n_bytes: int) -> int:
+    """Copies of an operand that together exceed the 50 MB L2."""
+    return max(2, math.ceil(64e6 / n_bytes))
+
+
+def w8a8_rows(M: int, D: int, dtype, g) -> torch.Tensor:
+    """Activations of varied row scales (log-normal), as a layer's rows."""
+    dev = torch.device("cuda")
+    x = torch.randn(M, D, generator=g, device=dev)
+    return (x * torch.exp(torch.randn(M, 1, generator=g, device=dev))
+            ).to(dtype)
+
+
+def check_w8a8_quantize(w8a8, what, x, ln):
+    """The quantize against its plain version on x (and the same bits over
+    two launches): plain mode the plain version's bits; with the layer norm
+    levels within one on at most 1e-3 and scales within rtol 2^-7 (bf16)
+    or 1e-6 (fp32). Returns (max level difference, share differing, max
+    scale relative error)."""
+    q, s = w8a8.quantize_rows(x, ln=ln)
+    q2, s2 = w8a8.quantize_rows(x, ln=ln)
+    qp, sp = w8a8.quantize_rows_plain(x, ln=ln)
+    torch.cuda.synchronize()
+    d = (q.int() - qp.int()).abs()
+    dmax, share = d.max().item(), (d > 0).float().mean().item()
+    fin = torch.isfinite(sp)
+    rel = ((s[fin] - sp[fin]).abs() / sp[fin].abs()).max().item() \
+        if bool(fin.any()) else 0.0
+    again = torch.equal(q, q2) and same_or_both_nan(s, s2)
+    if ln is None:
+        ok = torch.equal(q, qp) and same_or_both_nan(s, sp)
+    else:
+        rtol = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-6
+        ok = (dmax <= 1 and share <= 1e-3 and rel <= rtol
+              and torch.equal(torch.isnan(s), torch.isnan(sp)))
+    log(f"  {what}: vs plain levels max diff {dmax}, {share:.2e} differ, "
+        f"scales max rel err {rel:.2e}; two launches "
+        f"{'the same bits' if again else 'DIFFER'}")
+    check(ok and again, what)
+    return dmax, share, rel
+
+
+def phase_w8a8(w8a8, whisper):
+    """The W8A8 encoder layer's kernels (csrc/w8a8.cu) against their plain
+    versions on the card:
+    - the per-row quantize at each W8A8_QUANTIZES shape (and tiny's widths
+      in fp32), plain mode the plain version's bits, with the layer norm
+      within levels-one-on-1e-3 and a dtype ulp of the scale, the same bits
+      over two launches; rows with a NaN, +-inf, zeros (at 1280 and 4096
+      values): the plain version's levels and scales (NaN where it gives
+      NaN);
+    - the int8 product at each W8A8_PRODUCTS shape with its epilogue (both
+      folds, bias, cast, residual: the plain version's bits; GELU within
+      one ulp of the dtype, erf and tanh), the no-option fp32 product
+      (`_mm_i8`), the q/k/v group in one launch (each member the single
+      launch's and the plain version's bits), the same bits over two
+      launches;
+    timed cold (operands rotated over more than the 50 MB L2) beside the
+    plain version, the bound and, for the product, torch._int_mm with the
+    two folds (what the port ran before the kernel). Returns the two
+    `{"kernels"}` rows (the one-shot's ln1 quantize and fc1 product at
+    1500 rows in the main keys, every shape under "shapes")."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 130)
+    qrow = dict(name="w8a8_quantize", source="openhush_tpu_torch/csrc/w8a8.cu",
+                replaces="openhush_tpu/models/whisper/model.py:334 "
+                         "_quantize_rows", counter=w8a8.quantize_rows,
+                shapes=[])
+    mrow = dict(name="w8a8_mm", source="openhush_tpu_torch/csrc/w8a8.cu",
+                replaces="openhush_tpu/models/whisper/model.py:354 _mm_i8",
+                counter=w8a8.mm_w8a8, shapes=[])
+    # Rows with a NaN, +inf, -inf, both infs, zeros, then an ordinary row;
+    # at 1280 (one 8-value vector a thread) and at medium's MLP width 4096
+    # (two; small's 3072 too), which no large-v3 shape below runs.
+    g2 = torch.Generator(device=dev).manual_seed(SEED + 132)
+    for D, gen in ((1280, g), (4096, g2)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = w8a8_rows(6, D, dtype, gen)
+            x[0, 7] = float("nan")
+            x[1, 100] = float("inf")
+            x[2, 5] = -float("inf")
+            x[3, 0], x[3, 1] = float("inf"), -float("inf")
+            x[4] = 0
+            check_w8a8_quantize(w8a8, f"W8A8 quantize NaN/inf/zero rows "
+                                f"[6, {D}] {str(dtype)[6:]}", x, None)
+    for dtype, widths, Ms in ((torch.bfloat16, W8A8_QUANTIZES, W8A8_MS),
+                              (torch.float32, (
+                                  ("ln1/ln2", W8A8_TINY, True),
+                                  ("a", W8A8_TINY, False),
+                                  ("g", 4 * W8A8_TINY, False)), (1500,))):
+        for name, D, has_ln in widths:
+            ln = ((1 + 0.1 * torch.randn(D, generator=g, device=dev)).to(
+                dtype), (0.1 * torch.randn(D, generator=g, device=dev)).to(
+                dtype)) if has_ln else None
+            for M in Ms:
+                x = w8a8_rows(M, D, dtype, g)
+                what = (f"W8A8 quantize {name} [{M}, {D}] {str(dtype)[6:]}"
+                        + (" + layer norm" if has_ln else ""))
+                dmax, share, rel = check_w8a8_quantize(w8a8, what, x, ln)
+                e = x.element_size()
+                xs_ = [x] + [w8a8_rows(M, D, dtype, g) for _ in range(
+                    copies_for_cold(M * D * e) - 1)]
+                timed = functools.partial(time_ms, iters=10, warmup=2)
+                ms = timed(rotate([functools.partial(w8a8.quantize_rows, xi,
+                                                     ln) for xi in xs_]))
+                plain_ms = timed(rotate([functools.partial(
+                    w8a8.quantize_rows_plain, xi, ln) for xi in xs_]))
+                del xs_
+                bound, by = bound_ms(M * D * e + (2 * D * e if has_ln else 0)
+                                     + M * D + 4 * M, 0, "bf16")
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+                    f"{bound * 1e3:.3f} us ({by})")
+                qrow["shapes"].append(dict(
+                    what=name, M=M, D=D, dtype=str(dtype)[6:], ln=has_ln,
+                    level_diff=dmax, level_share=share, scale_rel=rel,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+                if (name, M, dtype) == ("ln1/ln2", 1500, torch.bfloat16):
+                    qrow.update(max_abs_err=float(dmax), ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, library_ms=None)
+
+    tiny = tuple((n, W8A8_TINY * I // 1280, W8A8_TINY * O // 1280, b, ge, r)
+                 for n, I, O, b, ge, r in W8A8_PRODUCTS)
+    for dtype, products, Ms in ((torch.bfloat16, W8A8_PRODUCTS, W8A8_MS),
+                                (torch.float32, tiny, (1500,))):
+        for name, I, O, biases, gelu, has_res in products:
+            n = len(biases)
+            sets = []
+            for _ in range(copies_for_cold(n * I * O)):
+                ws = []
+                for _ in range(n):
+                    w = whisper._quantize_weight(0.05 * torch.randn(
+                        I, O, generator=g, device=dev))
+                    w["q"] = w["q"].t().contiguous().t()
+                    ws.append(w)
+                sets.append(ws)
+            bs = [(0.5 * torch.randn(O, generator=g, device=dev)).to(dtype)
+                  if b else None for b in biases]
+            for M in Ms:
+                x8, xs = w8a8.quantize_rows_plain(w8a8_rows(M, I, dtype, g))
+                res = (torch.randn(M, O, generator=g, device=dev).to(dtype)
+                       if has_res else None)
+                what = (f"W8A8 {name} [{M}, {I}] x {n} x [{I}, {O}] "
+                        f"{str(dtype)[6:]}")
+                ws = sets[0]
+                if n > 1:
+                    before = w8a8.mm_w8a8.launches
+                    ys = w8a8.mm_w8a8_group(x8, xs, list(zip(ws, bs)),
+                                            out_dtype=dtype)
+                    check(w8a8.mm_w8a8.launches == before + 1,
+                          f"{what}: one launch counted")
+                    again = w8a8.mm_w8a8_group(x8, xs, list(zip(ws, bs)),
+                                               out_dtype=dtype)
+                    singles = [w8a8.mm_w8a8(x8, xs, w, b, out_dtype=dtype)
+                               for w, b in zip(ws, bs)]
+                    plains = w8a8.mm_w8a8_group_plain(
+                        x8, xs, list(zip(ws, bs)), out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    ok = all(torch.equal(a, b) and torch.equal(a, c)
+                             and torch.equal(a, p) for a, b, c, p in zip(
+                                 ys, again, singles, plains))
+                    err = max((a.float() - p.float()).abs().max().item()
+                              for a, p in zip(ys, plains))
+                    log(f"  {what}: one launch, each member the plain "
+                        f"version's, its single launch's and its own bits "
+                        f"over two launches: {ok} (max_abs_err {err:.3e})")
+                    check(ok, what)
+                else:
+                    kw = dict(bias=bs[0], gelu=gelu, residual=res,
+                              out_dtype=dtype)
+                    y = w8a8.mm_w8a8(x8, xs, ws[0], **kw)
+                    again = w8a8.mm_w8a8(x8, xs, ws[0], **kw)
+                    plain = w8a8.mm_w8a8_plain(x8, xs, ws[0], **kw)
+                    torch.cuda.synchronize()
+                    diff = (y.float() - plain.float()).abs()
+                    err = diff.max().item()
+                    same = torch.equal(y, plain)
+                    if gelu is None:
+                        ok = same
+                        note = "the plain version's bits" if same else "DIFFER"
+                    else:
+                        ok = bool((diff <= ulp_at(plain, dtype)).all())
+                        note = (f"within one ulp of {str(dtype)[6:]}: {ok} "
+                                f"({(diff > 0).float().mean().item():.2e} "
+                                f"differ)")
+                    log(f"  {what} (bias, {gelu or 'no'} GELU, "
+                        f"{'a' if has_res else 'no'} residual): vs plain "
+                        f"{note}, max_abs_err {err:.3e}; two launches "
+                        f"{'the same bits' if torch.equal(y, again) else 'DIFFER'}")
+                    check(ok and torch.equal(y, again)
+                          and bool(torch.isfinite(y).all()), what)
+                    if gelu == "erf" and M == Ms[0]:
+                        kw_t = dict(kw, gelu="tanh")
+                        yt = w8a8.mm_w8a8(x8, xs, ws[0], **kw_t)
+                        pt = w8a8.mm_w8a8_plain(x8, xs, ws[0], **kw_t)
+                        dt_ = (yt.float() - pt.float()).abs()
+                        ok_t = bool((dt_ <= ulp_at(pt, dtype)).all())
+                        log(f"  {what} tanh GELU: within one ulp: {ok_t} "
+                            f"({(dt_ > 0).float().mean().item():.2e} differ)")
+                        check(ok_t, f"{what} tanh GELU")
+                        y0 = w8a8.mm_w8a8(x8, xs, ws[0])
+                        p0 = w8a8.mm_w8a8_plain(x8, xs, ws[0])
+                        check(y0.dtype == torch.float32
+                              and torch.equal(y0, p0),
+                              f"{what} no options (fp32, _mm_i8)")
+                        log(f"  {what} no options (fp32 out, _mm_i8): the "
+                            f"plain version's bits")
+                timed = functools.partial(time_ms, iters=6, warmup=1)
+                if n > 1:
+                    run = lambda fn: rotate([functools.partial(
+                        fn, x8, xs, list(zip(wi, bs)), out_dtype=dtype)
+                        for wi in sets])
+                    ms = timed(run(w8a8.mm_w8a8_group))
+                    plain_ms = timed(run(w8a8.mm_w8a8_group_plain))
+                else:
+                    run = lambda fn: rotate([functools.partial(
+                        fn, x8, xs, wi[0], **kw) for wi in sets])
+                    ms = timed(run(w8a8.mm_w8a8))
+                    plain_ms = timed(run(w8a8.mm_w8a8_plain))
+                x2 = x8.reshape(-1, I)
+                library_ms = timed(rotate([
+                    (lambda wi: lambda: [torch._int_mm(x2, w["q"]).float()
+                                         * xs[:, None] * w["s"]
+                                         for w in wi])(wi) for wi in sets]))
+                e = torch.finfo(dtype).bits // 8
+                bound, by = bound_ms(
+                    M * I + 4 * M + n * (I * O + 4 * O + e * M * O)
+                    + sum(e * O for b in bs if b is not None)
+                    + (e * M * O if has_res else 0), n * 2 * M * I * O,
+                    "int8")
+                log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"_int_mm + folds {library_ms:.4f} ms; bound "
+                    f"{bound * 1e3:.3f} us ({by}); "
+                    f"{n * 2 * M * I * O / ms / 1e9:.1f} TOP/s")
+                mrow["shapes"].append(dict(
+                    what=name, M=M, I=I, O=O, members=n, dtype=str(dtype)[6:],
+                    gelu=gelu, residual=has_res, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound, bound_by=by))
+                if (name, M, dtype) == ("fc1", 1500, torch.bfloat16):
+                    mrow.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by,
+                                library_ms=library_ms)
+            del sets
+    return [qrow, mrow]
+
+
 @contextlib.contextmanager
 def counting_prefills(whisper, cfg):
     """Counts model.decode's long prefills (S * heads > 128: the path that
@@ -2921,13 +3266,14 @@ def phase_main_path(eng, whisper, counters, n_layer, secs=(20.0, 45.0)):
     for fn in counters:
         fn.launches = 0
     whisper._decode_flat_ro.calls = whisper._decode_flat_ro.layers = 0
-    with counting_prefills(whisper, eng.cfg) as prefills:
+    with counting_prefills(whisper, eng.cfg) as prefills, \
+            counting_int_mm() as int_mm, counting_encodes(whisper) as encodes:
         t0 = time.monotonic()
         results = [eng.transcribe(a, max_new_tokens=MAX_NEW_TOKENS)
                    for a in requests]
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {fn.__name__: fn.launches for fn in counters + [int_mm]}
     windows = sum(r.windows for r in results)
     audio_s = sum(len(a) for a in requests) / 16000
     langs = eng.tokenizer.special.languages
@@ -2955,6 +3301,8 @@ def phase_main_path(eng, whisper, counters, n_layer, secs=(20.0, 45.0)):
         check_w8a16_launches(launches, eng.params, n_layer,
                              whisper._decode_flat_ro.calls, prefills["long"],
                              windows)
+    if "mm_w8a8" in launches:
+        check_w8a8_launches(launches, encodes)
     return launches, audio_s / wall
 
 
@@ -3077,7 +3425,9 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     whisper.compute_cross_kv_quant = counted("xkv", xkv_fn)
     decoding.detect_language_logits = counted("detect", detect_fn)
     try:
-        with counting_prefills(whisper, cfg) as prefills:
+        with counting_prefills(whisper, cfg) as prefills, \
+                counting_int_mm() as int_mm, \
+                counting_encodes(whisper) as encodes:
             t0 = time.monotonic()
             results = longform.transcribe_files(srv, requests,
                                                 language="auto")
@@ -3086,7 +3436,7 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
     finally:
         whisper.compute_cross_kv_quant = xkv_fn
         decoding.detect_language_logits = detect_fn
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {fn.__name__: fn.launches for fn in counters + [int_mm]}
     flat_calls = whisper._decode_flat_ro.calls
     beam_calls = whisper.decode_beam_step.calls
     dispatches = srv.step_dispatches
@@ -3120,6 +3470,8 @@ def phase_serving(eng, longform, whisper, counters, n_layer,
         check_w8a16_launches(launches, params, n_layer,
                              flat_calls + beam_calls, prefills["long"],
                              calls["xkv"])
+    if "mm_w8a8" in launches:
+        check_w8a8_launches(launches, encodes)
 
     busy_steps(srv, n_slots, SEED + 40, unit)
     return launches, writes
@@ -4440,18 +4792,16 @@ def phase_spec(seng, speculative, decoding, whisper, frontend, counters,
 
 
 def phase_int8_encoder(eng, eng8, whisper, frontend):
-    """One window's encoder on the card, W8A8 (eng8's weights) against
-    bf16 (eng's, the same values before quantizing), at B=1 and B=8: device
-    busy time (and W8A8's top kernels at B=1); then torch._int_mm at the
-    MLP's first product ([1500, 1280] x [1280, 5120]) on the column-major
-    levels the encoder stores and on a row-major copy, beside the bf16
-    product."""
+    """One window's encoder on the card, W8A8 (eng8's weights: the W8A8
+    kernels) against bf16 (eng's, the same values before quantizing), at
+    B=1 and B=8: device busy time, and W8A8's top kernels at B=1. Returns
+    the busy times as `{"kernels"}` keys of the W8A8 product's row."""
     from torch.profiler import ProfilerActivity, profile
     cfg = eng.cfg
 
     def device_ms(params, m):
         """Device busy time of one encode (after one warm-up), by a
-        device-only trace: an eager W8A8 encode at B=1 queues kernels
+        device-only trace: an eager encode at B=1 may queue kernels
         slower than the card runs them, so events would time the host."""
         whisper.encode(cfg, params, m)
         torch.cuda.synchronize()
@@ -4461,6 +4811,7 @@ def phase_int8_encoder(eng, eng8, whisper, frontend):
         busy, by_name = device_time(prof)
         return busy / 1e3, by_name
 
+    out = {}
     with torch.inference_mode():
         window = torch.from_numpy(speechlike(30.0, SEED + 5)).cuda()[None]
         mel1 = frontend.log_mel(window, cfg.n_mels).to(eng.dtype)
@@ -4470,24 +4821,14 @@ def phase_int8_encoder(eng, eng8, whisper, frontend):
                                           for e in (eng, eng8))
             log(f"  encoder, one 30 s window x B={B}: device busy W8A8 "
                 f"{w8a8:.3f} ms, bf16 {bf16:.3f} ms")
+            out.update({f"encoder_w8a8_b{B}_ms": w8a8,
+                        f"encoder_bf16_b{B}_ms": bf16})
             if B == 1 and w8a8 > 0:
                 for name, us in sorted(by_name.items(),
                                        key=lambda kv: -kv[1])[:8]:
                     log(f"    {us / 1e3 / w8a8:6.1%}  {us / 1e3:8.3f} ms  "
                         f"{name[:90]}")
-        w = whisper._layers(eng8.params["encoder"]["layers"])[0]["fc1_w"]
-        x8 = torch.randint(-127, 128, (1500, w["q"].shape[0]), device="cuda",
-                           dtype=torch.int8)
-        row_major = w["q"].contiguous()
-        check(torch.equal(torch._int_mm(x8, w["q"]),
-                          torch._int_mm(x8, row_major)), "_int_mm layouts")
-        xb, wb = x8.to(torch.bfloat16), row_major.to(torch.bfloat16)
-        log(f"  _int_mm [1500, {w['q'].shape[0]}] x {list(w['q'].shape)}: "
-            f"column-major levels "
-            f"{time_ms(lambda: torch._int_mm(x8, w['q'])):.4f} ms, row-major "
-            f"{time_ms(lambda: torch._int_mm(x8, row_major)):.4f} ms; the "
-            f"bf16 product of the same shape {time_ms(lambda: xb @ wb):.4f} "
-            f"ms")
+    return out
 
 
 def phase_trace(eng, decoding, whisper, frontend, steps=32, beam=None):
@@ -5911,7 +6252,8 @@ def phase_cli():
 
 
 # The tensor-core kernels, by their mangled names' kernel and template
-# arguments: K2 in bf16 (NP = 1) and fp32 (NP = 3), K6 and K7 in fp32.
+# arguments: K2 in bf16 (NP = 1) and fp32 (NP = 3), K6 and K7 in fp32,
+# W8A16's tile mode, W8A8's product (its bf16 and fp32 outputs).
 TC_KERNELS = {
     "K2 bf16": "25flash_attention_tc_kernelILi1E",
     "K2 fp32": "25flash_attention_tc_kernelILi3E",
@@ -5920,30 +6262,38 @@ TC_KERNELS = {
     "W8A16 tile BN=64": "17w8a16_tile_kernelILi64E",
     "W8A16 tile BN=128": "17w8a16_tile_kernelILi128E",
     "W8A16 tile BN=256": "17w8a16_tile_kernelILi256E",
+    "W8A8 mm bf16": "14w8a8_mm_kernelI13__nv_bfloat16E",
+    "W8A8 mm fp32": "14w8a8_mm_kernelIfE",
 }
 
 
 def phase_sass(so, nvcc: str) -> None:
-    """K2 (bf16 and fp32), K6, K7 and W8A16's tile mode (its three tile
-    heights) run on the tensor cores: count each
-    one's warpgroup MMA instructions (HGMMA) in the built library's SASS,
-    by the toolkit's cuobjdump, and fail if one has none or if cuobjdump is
+    """K2 (bf16 and fp32), K6, K7, W8A16's tile mode (its three tile
+    heights) and W8A8's product run on the tensor cores: count each one's
+    warpgroup MMA instructions (HGMMA for bf16, IGMMA for int8: any SASS
+    mnemonic ending in GMMA, each printed) in the built library's SASS, by
+    the toolkit's cuobjdump, and fail if one has none or if cuobjdump is
     missing."""
+    import re
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     check(os.path.exists(cuobjdump), f"{cuobjdump} exists (the SASS check)")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    counts = dict.fromkeys(TC_KERNELS, 0)
+    counts = {k: {} for k in TC_KERNELS}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
             current = next((k for k, name in TC_KERNELS.items()
                             if name in line), None)
-        elif current is not None and "HGMMA" in line:
-            counts[current] += 1
-    for name, count in counts.items():
-        log(f"  {name} SASS: {count} HGMMA (wgmma) instructions")
-        check(count > 0, f"{name} on the tensor cores (HGMMA in its SASS)")
+        elif current is not None:
+            for op in re.findall(r"\b([A-Z]*GMMA)\b", line):
+                counts[current][op] = counts[current].get(op, 0) + 1
+    for name, ops in counts.items():
+        log(f"  {name} SASS: "
+            + (", ".join(f"{n} {op}" for op, n in sorted(ops.items()))
+               or "no") + " warpgroup MMA (wgmma) instructions")
+        check(sum(ops.values()) > 0,
+              f"{name} on the tensor cores (GMMA in its SASS)")
 
 
 # ---------------------------------------------------------------------------
@@ -6370,7 +6720,7 @@ def main() -> int:
                                            wakeword)
     from openhush_tpu_torch.ops import (_build, decode_attention, denoise,
                                         dsp, flash_attention, frontend, mel,
-                                        quantize, w8a16)
+                                        quantize, w8a8, w8a16)
     from openhush_tpu_torch import cli
     from openhush_tpu_torch.audio import capture
     from openhush_tpu_torch.runtime import (batcher, daemon, ipc, longform,
@@ -6410,6 +6760,7 @@ def main() -> int:
     spec_rows = phase_spec_attention(decode_attention, quantize)
     multi_row = phase_multi_attention(decode_attention, quantize)
     w8_row = phase_w8a16(w8a16, whisper)
+    w8a8_rows = phase_w8a8(w8a8, whisper)
     dsp_rows = phase_dsp_kernels(dsp, denoise)
     daemon_shapes = phase_daemon_shapes(frontend, flash_attention,
                                         decode_attention, quantize, mel)
@@ -6443,7 +6794,8 @@ def main() -> int:
         f"rungs, beam, speculative: {time.monotonic() - t:.1f} s")
 
     t = time.monotonic()
-    counters = [r["counter"] for r in rows] + [w8a16.mm_w8a16]
+    counters = [r["counter"] for r in rows] + [w8a16.mm_w8a16, w8a8.mm_w8a8,
+                                               w8a8.quantize_rows]
     n_layer = get_config("large-v3").n_text_layer
     eng = WhisperEngine("large-v3", dtype="bfloat16", allow_random_init=True)
     _, xrt_bf16 = phase_main_path(eng, whisper, counters, n_layer)
@@ -6489,13 +6841,16 @@ def main() -> int:
         f"({call8['host_ms'] / call_bf16['host_ms']:.2f}x); the one-shot "
         f"20 s request {xrt8:.2f}x realtime against phase 4's "
         f"{xrt_bf16:.2f}x ({xrt8 / xrt_bf16:.2f} of it)")
+    for r in w8a8_rows:
+        r["launches"] = launches1[r["counter"].__name__]
     w8_row.update(launches=launches1["mm_w8a16"],
                   int8_call_device_ms=call8["device_ms"],
                   bf16_call_device_ms=call_bf16["device_ms"],
                   int8_call_host_ms=call8["host_ms"],
                   bf16_call_host_ms=call_bf16["host_ms"],
                   int8_xrt=xrt8, bf16_xrt=xrt_bf16)
-    phase_int8_encoder(eng, eng8, whisper, frontend)
+    encoder_ms = phase_int8_encoder(eng, eng8, whisper, frontend)
+    w8a8_rows[1].update(encoder_ms)
     log("  int8 rungs: server with an int8 self-cache on those weights")
     launches8, flat8 = phase_serving(eng8, longform, whisper, counters,
                                      n_layer, int8_self_cache=True)
@@ -6503,6 +6858,8 @@ def main() -> int:
         r["launches"] = launches8[r["counter"].__name__]
     int8_rows[1]["self_write_launches"] = n_layer * flat8
     w8_row["server_launches"] = launches8["mm_w8a16"]
+    for r in w8a8_rows:
+        r["server_launches"] = launches8[r["counter"].__name__]
     del eng8
     log(f"phase 4d int8 rungs: {time.monotonic() - t:.1f} s")
 
@@ -6607,7 +6964,7 @@ def main() -> int:
 
     kernels = []
     for r in (rows + int8_rows + beam_rows + spec_rows + [multi_row]
-              + dsp_rows + [w8_row]):
+              + dsp_rows + [w8_row] + w8a8_rows):
         fn = r.pop("counter")
         kernels.append({"name": r["name"], "route": "cuda",
                         "source": r["source"], "replaces": r["replaces"],
@@ -6634,6 +6991,8 @@ def main() -> int:
                     "shapes", "int8_call_device_ms", "bf16_call_device_ms",
                     "int8_call_host_ms", "bf16_call_host_ms", "int8_xrt",
                     "bf16_xrt", *(
+                        f"encoder_{w}_b{B}_ms" for w in ("w8a8", "bf16")
+                        for B in (1, SERVE_SLOTS)), *(
                         f"ctx{T}_{name}" for T in DAEMON_CTXS
                         for name in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")),

@@ -24,10 +24,13 @@ Differences from the reference, each with its reason:
   the product (`_mm(x, w) + b`) the kernel's epilogue adds it, rounding
   as the separate add does. Products of one input (q, k and v of a
   layer's h; the cross-KV's xk and xv) share one launch (`_mm_group`).
-- The W8A8 encoder's int8 weights are stored column-major in each layer
-  (the same [in, out] values): `torch._int_mm` (cuBLASLt's int8 GEMM)
-  runs several times faster on a column-major second operand on the H100
-  (chip_smoke.py phase 4d times both).
+- The W8A8 encoder layer (`_block_i8`) runs on two hand-written kernels
+  (ops/w8a8.py): a per-row quantize that reads the layer norm's input and
+  quantizes its output in one pass (the reference's XLA fuses the two),
+  and an int8 product whose epilogue folds both scales, the bias, the cast,
+  GELU and the residual add; q, k and v share one launch. Its int8 weights
+  are stored column-major in each layer (the same [in, out] values): int8
+  wgmma takes its second operand K-major only.
 - The grouped beam step (`decode_beam_step`) writes each beam's new keys
   first, like the flat step, and attends under one ancestry mask that
   includes each beam's own new key (the reference's cache mask plus its
@@ -64,6 +67,7 @@ from openhush_tpu_torch.ops.decode_attention import (ancestry_rows,
                                                      div127)
 from openhush_tpu_torch.ops.flash_attention import flash_attention
 from openhush_tpu_torch.ops.quantize import quantize_heads_kv
+from openhush_tpu_torch.ops.w8a8 import mm_w8a8, mm_w8a8_group, quantize_rows
 from openhush_tpu_torch.ops.w8a16 import (matmul_f32, mm_w8a16,
                                           mm_w8a16_group)
 from openhush_tpu_torch.parallel.sharding import (copy_to_model,
@@ -251,38 +255,24 @@ def quantize_encoder_weights(params: Params) -> Params:
     """Every encoder layer matrix int8, the same recipe, for the W8A8
     encoder (`encode` takes `_block_i8` when q_w is a dict); the conv stem,
     positions and layer norms stay dense. Each layer's levels are stored
-    column-major, as `torch._int_mm` takes them fastest on the card."""
+    column-major, the K-major operand the W8A8 kernel's int8 wgmma takes."""
     return _quantize_layers(params, "encoder", column_major=True)
 
 
 def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: x [..., D] → (int8 values, fp32 scales
     [...]), scale = max|x| * float32(1/127) (a reciprocal multiply),
-    floored at 1e-10. Plain PyTorch, as the reference keeps it in XLA."""
-    x32 = x.float()
-    scale = x32.abs().amax(dim=-1) * torch.tensor(1.0 / 127.0,
-                                                  dtype=torch.float32)
-    safe = torch.clamp(scale, min=1e-10)
-    q = torch.clamp(torch.round(x32 / safe[..., None]), -127, 127)
-    return q.to(torch.int8), safe
+    floored at 1e-10: ops/w8a8.quantize_rows (the kernel on a CUDA tensor,
+    its plain version on a CPU one)."""
+    return quantize_rows(x)
 
 
 def _mm_i8(x8: torch.Tensor, xs: torch.Tensor, w: dict) -> torch.Tensor:
-    """int8 x int8 → int32 product (torch._int_mm) with both scale folds:
-    x8 [..., I] with per-row scales xs [...], w {"q": int8 [I, O], "s":
-    fp32 [O]} → fp32 [..., O], folded left to right as the reference does.
-    On the card _int_mm takes more than 16 rows and I, O multiples of 8:
-    other shapes raise."""
-    q = w["q"]
-    x2 = x8.reshape(-1, x8.shape[-1])
-    if x2.is_cuda and not (x2.shape[0] > 16 and x2.shape[1] % 8 == 0
-                           and q.shape[1] % 8 == 0):
-        raise ValueError(f"_mm_i8: the card's int8 GEMM takes more than 16 "
-                         f"rows and inner and output sizes that are multiples "
-                         f"of 8, not [{x2.shape[0]}, {x2.shape[1]}] x "
-                         f"[{q.shape[0]}, {q.shape[1]}]")
-    y = torch._int_mm(x2, q).view(*x8.shape[:-1], q.shape[-1]).float()
-    return y * xs[..., None] * w["s"].float()
+    """int8 x int8 → int32 product with both scale folds: x8 [..., I] with
+    per-row scales xs [...], w {"q": int8 [I, O], "s": fp32 [O]} → fp32
+    [..., O], folded left to right as the reference does: ops/w8a8.mm_w8a8
+    with no epilogue options."""
+    return mm_w8a8(x8, xs, w)
 
 
 # ---------------------------------------------------------------------------
@@ -327,18 +317,23 @@ def _block_i8(x, lp, n_head):
     """The W8A8 encoder layer: every projection an int8 x int8 product on
     per-row quantized activations, one quantize per distinct input (h feeds
     q, k and v); the residual stream, layer norms, attention (the flash
-    kernel) and GELU stay in x's dtype."""
+    kernel) and GELU stay in x's dtype. On the card 4 quantize launches
+    (ln1 and ln2 fused into theirs) and 4 product launches (q/k/v in one;
+    the bias, GELU and residual in the epilogues), ops/w8a8.py."""
     dt = x.dtype
-    h8, hs = _quantize_rows(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"]))
-    q = _split_heads((_mm_i8(h8, hs, lp["q_w"]) + lp["q_b"]).to(dt), n_head)
-    k = _split_heads(_mm_i8(h8, hs, lp["k_w"]).to(dt), n_head)
-    v = _split_heads((_mm_i8(h8, hs, lp["v_w"]) + lp["v_b"]).to(dt), n_head)
-    a8, as_ = _quantize_rows(_merge_heads(flash_attention(q, k, v)))
-    x = x + (_mm_i8(a8, as_, lp["o_w"]) + lp["o_b"]).to(dt)
-    h8, hs = _quantize_rows(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"]))
-    g = _gelu((_mm_i8(h8, hs, lp["fc1_w"]) + lp["fc1_b"]).to(dt))
-    g8, gs = _quantize_rows(g)
-    return x + (_mm_i8(g8, gs, lp["fc2_w"]) + lp["fc2_b"]).to(dt)
+    x = x.contiguous()          # the stem's transposed output, in layer 0
+    h8, hs = quantize_rows(x, ln=(lp["ln1_scale"], lp["ln1_bias"]))
+    q, k, v = (_split_heads(t, n_head) for t in mm_w8a8_group(
+        h8, hs, ((lp["q_w"], lp["q_b"]), (lp["k_w"], None),
+                 (lp["v_w"], lp["v_b"])), out_dtype=dt))
+    a8, as_ = quantize_rows(_merge_heads(flash_attention(q, k, v)))
+    x = mm_w8a8(a8, as_, lp["o_w"], bias=lp["o_b"], residual=x, out_dtype=dt)
+    h8, hs = quantize_rows(x, ln=(lp["ln2_scale"], lp["ln2_bias"]))
+    g = mm_w8a8(h8, hs, lp["fc1_w"], bias=lp["fc1_b"], gelu=_gelu_mode(),
+                out_dtype=dt)
+    g8, gs = quantize_rows(g)
+    return mm_w8a8(g8, gs, lp["fc2_w"], bias=lp["fc2_b"], residual=x,
+                   out_dtype=dt)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ and flags: a changed source builds anew, an unchanged one is loaded as it
 is. The library is loaded with ctypes, so nothing here includes PyTorch's
 headers. There is no ``--use_fast_math``: it would turn ``/`` and ``log10f``
 into approximations, and the kernels' parity with the reference needs the
-IEEE versions.
+IEEE versions. decode_attention.cu alone also takes ``--split-compile=0``
+(SOURCE_FLAGS), which optimizes its 86 kernels on all cores: the build's
+wall time is that source's, 97.9 s without the flag and 49.2 s with it on
+an H100 machine's 8 cores (tools/torch_build_flags_probe.py). The flag
+changes the SASS of most kernels, so no other source, which would gain a
+second at most, takes it.
 
 Nothing is compiled or loaded when this module is imported; only the kernel
 wrappers call :func:`library`, and only for CUDA tensors.
@@ -23,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -30,6 +36,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+SOURCE_FLAGS = {"decode_attention.cu": ["--split-compile=0"]}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # extern "C" entry points and their argument types; each returns a
@@ -55,6 +62,8 @@ SIGNATURES = {
     "oh_noise_floor": [_P, _P, _P, _I, _I, _I, _P],
     "oh_w8a16_group": [_P] + ([_P] * 4 + [_I]) * 3 + [_I] * 4 + [_P],
     "oh_w8a16_cluster": [_I] * 4,
+    "oh_w8a8_quantize": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "oh_w8a8_mm": [_P, _P] + ([_P] * 5 + [_I]) * 3 + [_I] * 6 + [_P],
 }
 
 RESTYPES = {"oh_dsp_scratch_floats": _LL}
@@ -80,10 +89,60 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libopenhush_kernels_{h.hexdigest()[:16]}.so"
+
+
+def compile_command(src: Path, out, *extra: str, flags=None, cc=None
+                    ) -> list[str]:
+    """nvcc's command line for one source into `out` (`extra` says what:
+    "-c" for an object, "-shared" for a library of its own), with FLAGS
+    and the source's SOURCE_FLAGS unless `flags` is given."""
+    if flags is None:
+        flags = FLAGS + SOURCE_FLAGS.get(src.name, [])
+    return [cc or nvcc(), *ARCH, *flags, *extra, str(src), "-o", str(out)]
+
+
+def load(so, prefix: str = "") -> ctypes.CDLL:
+    """A built library loaded with the argument and result types of the
+    SIGNATURES entries whose names start with `prefix` (every entry by
+    default); each of them must be in it."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        if name.startswith(prefix):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
+_PTXAS_LINES = ("registers", "spill", "error", "warning",
+                "Function properties", "Compiling", "Performance Loss")
+
+
+def build_one(src: Path, name: str, out_dir: Path, prefix: str
+              ) -> ctypes.CDLL:
+    """A library of one source (a copy of a csrc file may include its
+    headers), built into `out_dir/<name>.so` on every call and loaded apart
+    from :func:`library`, with the argument types of the SIGNATURES whose
+    names start with `prefix`; ptxas's register and spill lines printed.
+    The probes build variants of a kernel with it."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"{name}.so"
+    t = time.monotonic()
+    run = subprocess.run(compile_command(src, so, "-I", str(CSRC), "-shared"),
+                         capture_output=True, text=True)
+    print(f"build {src.name} as {name}: rc {run.returncode} in "
+          f"{time.monotonic() - t:.1f} s", flush=True)
+    for line in (run.stdout + run.stderr).splitlines():
+        if any(k in line for k in _PTXAS_LINES):
+            print("  " + line.strip())
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed for {src}")
+    return load(so, prefix)
 
 
 def build() -> Path:
@@ -101,7 +160,7 @@ def build() -> Path:
             obj = os.path.join(tmp, src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [cc, *ARCH, *FLAGS, "-c", str(src), "-o", obj],
+                compile_command(src, obj, "-c", cc=cc),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []
         for src, p in procs:
@@ -126,12 +185,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = RESTYPES.get(name, ctypes.c_int)
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 

@@ -172,6 +172,31 @@ def test_wrappers_never_fall_back_off_the_cpu():
                             torch.empty(22, device="meta"))
 
 
+def test_w8a8_wrappers_never_fall_back_off_the_cpu():
+    """The W8A8 encoder's wrappers launch or raise off the CPU, as the
+    others do, and the W8A8 engine needs CUDA unless the CPU is asked."""
+    from openhush_tpu_torch.ops import w8a8
+    x = torch.empty(4, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        w8a8.quantize_rows(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        w8a8.quantize_rows(x, ln=(torch.empty(128, device="meta"),
+                                  torch.empty(128, device="meta")))
+    x8 = torch.empty(4, 128, dtype=torch.int8, device="meta")
+    w = {"q": torch.empty(32, 128, dtype=torch.int8, device="meta").t(),
+         "s": torch.empty(32, device="meta")}
+    xs = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        w8a8.mm_w8a8(x8, xs, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        w8a8.mm_w8a8_group(x8, xs, [(w, None)] * 3)
+    if torch.cuda.is_available():
+        return
+    from openhush_tpu_torch.runtime.engine import WhisperEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WhisperEngine("test", allow_random_init=True, quantize_encoder=True)
+
+
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     """Without a CUDA toolkit the build raises; nothing is compiled or
     loaded when the modules are imported."""

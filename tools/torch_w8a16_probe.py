@@ -55,30 +55,8 @@ OUT = _build.BUILD_DIR / "probe"
 
 
 def build_alone(src: Path, name: str) -> ctypes.CDLL:
-    """nvcc of one source into its own library, loaded with the entry's
-    argument types; ptxas's lines printed."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    so = OUT / f"{name}.so"
-    t = time.monotonic()
-    run = subprocess.run([_build.nvcc(), *_build.ARCH, *_build.FLAGS,
-                          "-I", str(_build.CSRC), "-shared", str(src), "-o",
-                          str(so)],
-                         capture_output=True, text=True)
-    print(f"build {src.name} as {name}: rc {run.returncode} in "
-          f"{time.monotonic() - t:.1f} s", flush=True)
-    for line in (run.stdout + run.stderr).splitlines():
-        if "registers" in line or "spill" in line or "error" in line \
-                or "Function properties" in line or "Compiling" in line \
-                or "Performance Loss" in line:
-            print("  " + line.strip())
-    if run.returncode:
-        raise RuntimeError(f"nvcc failed for {src}")
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _build.SIGNATURES.items():
-        if name.startswith("oh_w8a16") and hasattr(lib, name):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+    """One source built into its own library under OUT (_build.build_one)."""
+    return _build.build_one(src, name, OUT, "oh_w8a16")
 
 
 def compare(variants, checked=True):
